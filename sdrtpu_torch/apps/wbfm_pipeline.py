@@ -1,0 +1,202 @@
+"""Flagship pipeline: wideband IQ -> N simultaneous WBFM stereo receivers.
+
+PyTorch counterpart of ``sdrtpu/apps/wbfm_pipeline.py``:
+
+    wideband (fs_in) --Channelizer--> (C, n_if) @ 250 kHz
+      per channel:  BroadcastFm stereo (envelope pilot) -> (2, C, n_if)
+      audio:        RationalResampler 250k->48k        -> (2, C, n_af)
+                    Deemphasis 50 us                   -> audio out
+      waterfall:    SpectrumAnalyzer on the wideband   -> (frames, fft_size) dB
+
+Steady state (`scan_call`/`scan_repeat`): the overlap-save channelizer
+takes any multiple of ``block_len`` as one window, so each sub-window of
+blocks runs once through the whole chain (`_batched`) and only the
+sub-windows are a Python loop.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .. import resolve_device
+from ..graph.block import StreamOp, tree_map, tree_stack
+from ..kernels.fftspec import SpectrumAnalyzer
+from ..kernels.iir import Deemphasis
+from ..kernels.resample import RationalResampler
+from ..kernels.wfm import BroadcastFm
+from ..shard.channelizer import Channelizer
+
+
+class WbfmMultiVfoPipeline(StreamOp):
+    """Full multi-VFO WBFM receiver as one stream op.
+
+    ``block_len`` is the wideband input block length (a multiple of
+    `block_multiple()`).  ``sub_samples`` is the sub-window length of the
+    batched steady state, in samples: 4e6 is the reference's value, chosen
+    on a TPU and not measured on the card.
+    """
+
+    def __init__(self, offsets_hz, in_samplerate: float, block_len: int,
+                 if_rate: float = 250000.0, audio_rate: float = 48000.0,
+                 deviation: float = 75000.0, stereo: bool = True,
+                 tau: float = 50e-6, channelizer_method: str = "auto",
+                 sparse_fold_db: float | None = None, spectrum: bool = False,
+                 fft_size: int = 65536, fft_rate: float = 20.0,
+                 pilot_mode: str = "envelope", skip_rotator: bool = False,
+                 sub_samples: float = 4e6, device="cuda"):
+        self.device = resolve_device(device)
+        dev = self.device
+        self.offsets = np.asarray(offsets_hz, np.float64)
+        self.n_channels = len(self.offsets)
+        self.block_len = int(block_len)
+        self.sub_samples = float(sub_samples)
+        self.skip_rotator = bool(skip_rotator)
+        self.channelizer = Channelizer(
+            self.offsets, in_samplerate, if_rate, block_len,
+            method=channelizer_method, sparse_thresh_db=sparse_fold_db,
+            skip_rotator=self.skip_rotator, device=dev)
+        # the 15 kHz audio lowpass is folded into the audio resampler's
+        # prototype (bw/trans_bw below), as in the reference
+        self.demod = BroadcastFm(
+            deviation=deviation, samplerate=if_rate, stereo=stereo,
+            low_pass=False, pilot_mode=pilot_mode,
+            subcarrier_droop_comp=True,
+            channel_derotate=self.skip_rotator, device=dev)
+        self.audio_resamp = RationalResampler(
+            if_rate, audio_rate, dtype=torch.float32, bw=15000.0,
+            trans_bw=4000.0, device=dev)
+        # scalar initial state broadcasts over the (2, C, n) audio and
+        # becomes (2, C, 1) after the first block
+        self.deemph = Deemphasis(tau, audio_rate, device=dev)
+        n_if = self.channelizer.out_len(block_len)
+        assert n_if % self.audio_resamp.block_multiple() == 0, (
+            f"IF block {n_if} not a multiple of audio quantum "
+            f"{self.audio_resamp.block_multiple()}")
+        # optional per-window reduction of the spectrum (e.g. torch.amax
+        # for a throughput probe); None = full frames
+        self.spec_reduce = None
+        self.spectrum = None
+        if spectrum:
+            self.spectrum = SpectrumAnalyzer(in_samplerate, fft_size,
+                                             fft_rate, device=dev)
+            assert block_len % self.spectrum.interval == 0, (
+                f"block {block_len} not a multiple of FFT interval "
+                f"{self.spectrum.interval}")
+
+    @staticmethod
+    def block_multiple(in_samplerate, if_rate=250000.0,
+                       audio_rate=48000.0) -> int:
+        front = RationalResampler(in_samplerate, if_rate, device="cpu")
+        audio = RationalResampler(if_rate, audio_rate, device="cpu")
+        return front.block_multiple() * audio.block_multiple()
+
+    def _residual_rot(self) -> torch.Tensor:
+        return torch.as_tensor(self.channelizer.fused.residual_omega.copy(),
+                               device=self.device)
+
+    def init_state(self):
+        st = {
+            "chan": self.channelizer.init_state(),
+            "demod": self.demod.init_state(),
+            "audio": self.audio_resamp.init_state(),
+            "deemph": self.deemph.init_state(),
+        }
+        if self.skip_rotator:
+            st["demod"]["quad"] = {"prev": st["demod"]["quad"]["prev"],
+                                   "rot": self._residual_rot()}
+        return st
+
+    def out_len(self, n: int) -> int:
+        return self.audio_resamp.out_len(self.channelizer.out_len(n))
+
+    def retune_state(self, state, offsets_hz) -> dict:
+        """Retune every VFO by a table swap; every carry is kept."""
+        st = dict(state)
+        st["chan"] = self.channelizer.retune_state(state["chan"], offsets_hz)
+        self.offsets = np.asarray(offsets_hz, np.float64)
+        if self.skip_rotator:
+            st["demod"] = dict(st["demod"])
+            st["demod"]["quad"] = {**st["demod"]["quad"],
+                                   "rot": self._residual_rot()}
+        return st
+
+    def __call__(self, state, x):
+        st = dict(state)
+        st["chan"], y = self.channelizer(state["chan"], x)  # (C, n_if)
+        st["demod"], (stereo, _) = self.demod(state["demod"], y)
+        st["audio"], a = self.audio_resamp(state["audio"], stereo)
+        st["deemph"], a = self.deemph(state["deemph"], a)
+        if self.spectrum is not None:
+            _, spec = self.spectrum((), x)  # (frames, fft_size) dB
+            return st, (a, spec)
+        return st, a
+
+    # -- batched steady state ------------------------------------------------
+
+    def _back_end(self, st, state, y, segs, K: int):
+        """IF-rate tail on the (C, K*n_if) window, reframed per block:
+        audio (K, 2, C, n_af) and spectra (K, frames, fft_size)."""
+        st["demod"], (stereo, _) = self.demod(state["demod"], y)
+        st["audio"], a = self.audio_resamp(state["audio"], stereo)
+        st["deemph"], a = self.deemph(state["deemph"], a)
+        a = a.reshape(a.shape[0], a.shape[1], K, -1).movedim(2, 0)
+        if self.spectrum is not None:
+            spec = self.spectrum.transform(segs)
+            if self.spec_reduce is not None:
+                return st, (a, self.spec_reduce(spec))
+            return st, (a, spec.reshape(K, -1, spec.shape[-1]))
+        return st, a
+
+    def _batched(self, state, x_cat, K: int):
+        """One pass of the whole chain over a K-block window."""
+        st = dict(state)
+        st["chan"], y = self.channelizer(state["chan"], x_cat)
+        segs = (self.spectrum.extract(x_cat)
+                if self.spectrum is not None else ())
+        return self._back_end(st, state, y, segs, K)
+
+    def _subk(self, K: int) -> int:
+        """Blocks per sub-window: floor(sub_samples / block_len), at
+        least 1, lowered until it divides K."""
+        sub = min(K, max(1, int(self.sub_samples // self.block_len)))
+        while K % sub:
+            sub -= 1
+        return sub
+
+    @staticmethod
+    def _unstack(outs, K: int, n_sub: int, sub: int):
+        """Stacked per-sub-window outputs (n_sub, sub, ...) -> (K, ...)."""
+        stacked = tree_stack(outs)
+        return tree_map(
+            lambda a: (a.reshape((K,) + a.shape[2:])
+                       if a.ndim >= 2 and a.shape[:2] == (n_sub, sub) else a),
+            stacked)
+
+    def scan_call(self, state, xs):
+        """K stacked wideband blocks ``(K, block_len)`` -> K blocks of output
+        (audio ``(K, 2, C, n_af)``, spectra ``(K, frames, fft_size)``)."""
+        K = xs.shape[0]
+        sub = self._subk(K)
+        xw = xs.reshape(K // sub, sub * xs.shape[-1])
+        if sub == K:
+            return self._batched(state, xw[0], K)
+        outs = []
+        for xsub in xw:
+            state, out = self._batched(state, xsub, sub)
+            outs.append(out)
+        return state, self._unstack(outs, K, K // sub, sub)
+
+    def scan_repeat(self, state, x, K: int):
+        """Like `scan_call` on K copies of ONE device-resident block (the
+        benchmark steady state)."""
+        n = x.shape[-1]
+        sub = self._subk(K)
+        x_sub = x[None, :].expand(sub, n).reshape(-1)
+        if sub == K:
+            return self._batched(state, x_sub, K)
+        outs = []
+        for _ in range(K // sub):
+            state, out = self._batched(state, x_sub, sub)
+            outs.append(out)
+        return state, self._unstack(outs, K, K // sub, sub)

@@ -1,0 +1,277 @@
+"""Streaming FIR filtering (PyTorch counterpart of ``sdrtpu/kernels/fir.py``).
+
+Semantics as in the reference: ``out[i] = sum_t ext[i + t] * taps[t]``
+with ``ext = [tail ++ x]`` — a valid cross-correlation against the taps
+as stored; state is the trailing ``taps - 1`` input samples.
+
+Three evaluations of the same sum:
+
+- `correlate_valid`: shift-and-add over the taps (short filters);
+- `matmul_correlate_valid`: banded-Toeplitz matmuls on shifted row views
+  (the WFM pilot and de-emphasis paths);
+- `fft_correlate_valid`: FFT overlap-save (long filters).
+
+Contractions are float32 ``torch.matmul``.  The reference pins its TPU
+matmuls to multi-pass precision because one bf16 pass broke the demod
+SINAD floors; the port's equivalent is full float32 with TF32 off
+(``torch.backends.cuda.matmul.allow_tf32 = False``, PyTorch's default).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .. import resolve_device
+from ..graph.block import StreamOp
+
+
+def _pad_last(x: torch.Tensor, n: int) -> torch.Tensor:
+    """Zero-pad the last axis by ``n`` samples on the right."""
+    if n == 0:
+        return x
+    return torch.cat([x, x.new_zeros(x.shape[:-1] + (n,))], dim=-1)
+
+
+def correlate_valid(x: torch.Tensor, taps, stride: int = 1) -> torch.Tensor:
+    """Valid correlation along the last axis, any real/complex combination.
+
+    ``out[..., i] = sum_t x[..., i*stride + t] * taps[t]`` as a
+    shift-and-add over host tap values, accumulated in tap order as the
+    reference does.
+    """
+    taps = np.asarray(taps)
+    cplx = np.iscomplexobj(taps)
+    if cplx and not x.is_complex():
+        x = x.to(torch.complex64)
+    L = x.shape[-1]
+    T = int(taps.shape[0])
+    vals = [complex(t) if cplx else float(t) for t in taps]
+    M = int(stride)
+    A = (L - T) // M + 1
+    acc = None
+    for t in range(T):
+        seg = x[..., t : t + (A - 1) * M + 1 : M]
+        term = vals[t] * seg
+        acc = term if acc is None else acc + term
+    return acc
+
+
+def toeplitz_matrix(taps, block: int) -> np.ndarray:
+    """Host banded-Toeplitz matrix ``H[j, i] = taps[j - i]`` for
+    ``0 <= j - i < T``, shape ``(R*block, block)`` with
+    ``R = 1 + ceil((T-1)/block)``; float32 or complex64 like the taps."""
+    taps = np.asarray(taps)
+    T = int(taps.shape[0])
+    M = int(block)
+    R = 1 + -(-(T - 1) // M) if T > 1 else 1
+    d = np.arange(R * M)[:, None] - np.arange(M)[None, :]
+    H = np.where((d >= 0) & (d < T), taps[np.clip(d, 0, T - 1)], 0)
+    return H.astype(np.complex64 if np.iscomplexobj(taps) else np.float32)
+
+
+def shifted_window_matmul(xr: torch.Tensor, mat: torch.Tensor,
+                          A: int) -> torch.Tensor:
+    """``out[..., a, w] = sum_q xr[..., a+q, :] @ mat[q*M:(q+1)*M, w]``.
+
+    ``xr``: (..., rows, M) — one input laid out as rows of M.  The
+    (A, R*M) frame matrix is never built: each of the R row blocks of
+    ``mat`` contracts a shifted unit-stride view of the same rows.
+    """
+    M = int(xr.shape[-1])
+    R = int(mat.shape[0]) // M
+    acc = None
+    for q in range(R):
+        term = torch.matmul(xr[..., q : q + A, :], mat[q * M : (q + 1) * M])
+        acc = term if acc is None else acc + term
+    return acc
+
+
+def matmul_correlate_valid(x: torch.Tensor, taps, block: int = 128,
+                           H: torch.Tensor | None = None) -> torch.Tensor:
+    """`correlate_valid` (stride 1) as banded-Toeplitz float32 matmuls.
+
+    ``y[a*M + i] = sum_j ext[a*M + j] * H[j, i]``; ``H`` is
+    `toeplitz_matrix` (pass it prebuilt on the device to skip the host
+    build).  Real taps filter the real and imaginary planes of a complex
+    input in one batched matmul; complex taps run a complex matmul.
+    """
+    taps = np.asarray(taps)
+    T = int(taps.shape[0])
+    M = int(block)
+    L = int(x.shape[-1])
+    span = L - T + 1
+    assert span >= 1
+    R = 1 + -(-(T - 1) // M) if T > 1 else 1
+    A = -(-span // M)
+    rows = A + R - 1
+    if H is None:
+        H = torch.as_tensor(toeplitz_matrix(taps, M), device=x.device)
+    lead = x.shape[:-1]
+    if H.is_complex():
+        x = x.to(torch.complex64)
+        xr = _pad_last(x, rows * M - L).reshape(lead + (rows, M))
+        y = shifted_window_matmul(xr, H, A)
+    elif x.is_complex():
+        xr = _pad_last(x, rows * M - L).reshape(lead + (rows, M))
+        planes = torch.stack((xr.real, xr.imag))
+        out = shifted_window_matmul(planes, H, A)
+        y = torch.complex(out[0], out[1])
+    else:
+        xr = _pad_last(x, rows * M - L).reshape(lead + (rows, M))
+        y = shifted_window_matmul(xr, H, A)
+    return y.reshape(lead + (A * M,))[..., :span]
+
+
+def _next_fft_len(n: int) -> int:
+    """Smallest 2^a (a >= 4) >= n."""
+    m = 16
+    while m < n:
+        m *= 2
+    return m
+
+
+def _plan_corr_nfft(L: int, T: int) -> int:
+    """FFT size for overlap-save correlation (the reference's cost model:
+    one transform for short signals, else the power of two minimizing
+    ``ceil(span/valid) * nfft * log2(nfft)``)."""
+    span = L - T + 1
+    if L + T - 1 <= 32768:
+        return _next_fft_len(L + T - 1)
+    best = None
+    nfft = _next_fft_len(2 * T)
+    while True:
+        valid = nfft - T + 1
+        cost = -(-span // valid) * nfft * np.log2(nfft)
+        if best is None or cost < best[0]:
+            best = (cost, nfft)
+        if nfft >= L + T - 1 or nfft >= (1 << 20):
+            break
+        nfft *= 2
+    return best[1]
+
+
+def fft_correlate_valid(x: torch.Tensor, taps) -> torch.Tensor:
+    """`correlate_valid` (stride 1) via FFT overlap-save.
+
+    Correlation is convolution with reversed taps:
+    ``out = IFFT(FFT(x_pad) * FFT(reverse(taps)))[T-1 : T-1+span]``, the
+    tap spectrum built on the host in float64.  Long inputs are cut into
+    overlap-save chunks of the planned size.
+    """
+    taps = np.asarray(taps)
+    L = int(x.shape[-1])
+    T = int(taps.shape[0])
+    span = L - T + 1
+    nfft = _plan_corr_nfft(L, T)
+    if nfft < L + T - 1:
+        valid = nfft - T + 1
+        P = -(-span // valid)
+        Q = -(-nfft // valid)
+        rows_n = P + Q - 1
+        lead = x.shape[:-1]
+        rows = _pad_last(x, rows_n * valid - L).reshape(lead + (rows_n, valid))
+        chunks = torch.cat(
+            [rows[..., q : q + P, :] for q in range(Q)], dim=-1
+        )[..., :nfft]
+        y = _fft_corr_padded(chunks, taps, nfft)  # (..., P, valid)
+        return y.reshape(lead + (P * valid,))[..., :span]
+    return _fft_corr_padded(x, taps, nfft)
+
+
+def _fft_corr_padded(x: torch.Tensor, taps: np.ndarray,
+                     nfft: int) -> torch.Tensor:
+    """Circular correlation core: the ``L - T + 1`` valid outputs of the
+    last axis zero-padded to ``nfft``."""
+    L = int(x.shape[-1])
+    T = int(taps.shape[0])
+    span = L - T + 1
+    hf = np.fft.fft(taps[::-1].astype(np.complex128), nfft)
+    complex_out = x.is_complex() or np.iscomplexobj(taps)
+    xf = torch.fft.fft(_pad_last(x.to(torch.complex64), nfft - L))
+    hf_t = torch.as_tensor(hf.astype(np.complex64), device=x.device)
+    y = torch.fft.ifft(xf * hf_t)[..., T - 1 : T - 1 + span]
+    return y if complex_out else y.real
+
+
+class Fir(StreamOp):
+    """Streaming FIR: state = last ``taps - 1`` input samples.
+
+    ``method``: "direct" (shift-and-add), "fft" (overlap-save), "mm"
+    (banded-Toeplitz matmuls) or "auto" (fft from 128 taps, direct
+    below — the reference's crossover, chosen on a TPU and not measured
+    on the card; every method computes the same sum).
+    """
+
+    _FFT_MIN_TAPS = 128
+
+    def __init__(self, taps: np.ndarray, dtype=torch.complex64,
+                 method: str = "auto", device="cuda"):
+        taps = np.asarray(taps)
+        self.device = resolve_device(device)
+        self.taps = taps
+        self.ntaps = int(taps.shape[0])
+        self.dtype = dtype
+        assert method in ("auto", "direct", "fft", "mm")
+        if method == "auto":
+            method = "fft" if self.ntaps >= self._FFT_MIN_TAPS else "direct"
+        self.method = method
+        self._H = (torch.as_tensor(toeplitz_matrix(taps, 128),
+                                   device=self.device)
+                   if method == "mm" else None)
+
+    def init_state(self):
+        return torch.zeros((self.ntaps - 1,), dtype=self.dtype,
+                           device=self.device)
+
+    def out_len(self, n: int) -> int:
+        return n
+
+    def __call__(self, state, x):
+        x = x.to(self.dtype)
+        state = state.expand(x.shape[:-1] + (self.ntaps - 1,))
+        ext = torch.cat([state, x], dim=-1)
+        if self.method == "fft":
+            y = fft_correlate_valid(ext, self.taps)
+        elif self.method == "mm":
+            y = matmul_correlate_valid(ext, self.taps, H=self._H)
+        else:
+            y = correlate_valid(ext, self.taps)
+        if not y.is_complex():
+            y = y.to(self.dtype)
+        new_state = ext[..., x.shape[-1]:] if self.ntaps > 1 else state
+        return new_state, y
+
+
+class DecimatingFir(StreamOp):
+    """FIR evaluated every ``decimation`` input samples; block lengths
+    must be divisible by the decimation (no phase carry)."""
+
+    def __init__(self, taps: np.ndarray, decimation: int,
+                 dtype=torch.complex64, device="cuda"):
+        taps = np.asarray(taps)
+        self.device = resolve_device(device)
+        self.taps = taps
+        self.ntaps = int(taps.shape[0])
+        self.decimation = int(decimation)
+        self.dtype = dtype
+
+    def init_state(self):
+        return torch.zeros((self.ntaps - 1,), dtype=self.dtype,
+                           device=self.device)
+
+    def out_len(self, n: int) -> int:
+        assert n % self.decimation == 0, (
+            f"block length {n} not divisible by decimation {self.decimation}"
+        )
+        return n // self.decimation
+
+    def __call__(self, state, x):
+        n = x.shape[-1]
+        assert n % self.decimation == 0
+        x = x.to(self.dtype)
+        state = state.expand(x.shape[:-1] + (self.ntaps - 1,))
+        ext = torch.cat([state, x], dim=-1)
+        y = correlate_valid(ext, self.taps, stride=self.decimation)
+        new_state = ext[..., n:] if self.ntaps > 1 else state
+        return new_state, y

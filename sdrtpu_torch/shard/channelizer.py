@@ -1,0 +1,407 @@
+"""Multi-VFO channelizer (PyTorch counterpart of ``sdrtpu/shard/channelizer.py``).
+
+The N VFOs are one more tensor axis.  Ported here:
+
+- `MultiVfoMixer` (per-channel wrapped-phase rotator, with the
+  closed-form K-block `rotate_blocks`);
+- `FftDecimatorChain`, the dense alias-fold path: overlap-save chunks in
+  polyphase layout from the CUDA kernel `chunk_poly`, a length-nif FFT
+  batch, the fold against the host-built table ``G``, then ifft and trim;
+- `Channelizer` with ``method`` "auto"/"fft".
+
+Not ported yet (each raises NotImplementedError; ROADMAP.md M11): the
+sparse fold, `ModulatedDecimatorChain` ("xla-fused"), the plain mixer +
+resampler path ("xla"), "pfb" and the fused "pallas" stage (kernel K2).
+
+Offset-dependent tables (the fold table ``hf`` and the rotator tables)
+live in the state on the device, so a retune is a host rebuild and a
+table swap; phase carries are float32 as in the reference.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .. import resolve_device
+from ..graph.block import StreamOp
+from ..kernels import taps as tapsmod
+from ..kernels.chunks import chunk_poly
+from ..kernels.fir import Fir
+from ..kernels.resample import RationalResampler
+
+_TWO_PI = 2.0 * np.pi
+_FINE = 1024
+
+_NOT_PORTED = ("is not ported yet (ROADMAP.md M11: channelizer alternates); "
+               "sdrtpu_torch runs the dense fft channelizer only")
+
+
+class MultiVfoMixer(StreamOp):
+    """C-channel frequency translation: y[c] = x * exp(i*omega_c*n).
+
+    Pass ``-f_c`` offsets to bring channels at +f_c to baseband.  The
+    per-channel wrapped-phase tables (float64 on the host, stored float32)
+    live in the state.
+    """
+
+    def __init__(self, offsets_hz, samplerate: float, block_len: int,
+                 device="cuda"):
+        self.device = resolve_device(device)
+        offsets = np.asarray(offsets_hz, np.float64)
+        self.n_channels = len(offsets)
+        self.samplerate = float(samplerate)
+        self.block_len = int(block_len)
+        omega = _TWO_PI * offsets / samplerate
+        n = self.block_len
+        fine = min(_FINE, n)
+        n_coarse = -(-n // fine)
+        k_fine = np.arange(fine, dtype=np.float64)
+        k_coarse = np.arange(n_coarse, dtype=np.float64) * fine
+        self.offsets = offsets
+        self._fine_t = np.mod(omega[:, None] * k_fine, _TWO_PI).astype(np.float32)
+        self._coarse_t = np.mod(omega[:, None] * k_coarse, _TWO_PI).astype(np.float32)
+        self._delta = np.mod(omega * n, _TWO_PI).astype(np.float32)
+
+    def _tables(self) -> dict:
+        def dev(a):
+            return torch.as_tensor(a, device=self.device)
+
+        return {"coarse": dev(self._coarse_t), "fine": dev(self._fine_t),
+                "delta": dev(self._delta)}
+
+    def init_state(self):
+        return {"phase": torch.zeros(self.n_channels, dtype=torch.float32,
+                                     device=self.device),
+                **self._tables()}
+
+    def retune_state(self, state, offsets_hz) -> dict:
+        """New offset tables; the carried phase is kept (RxVFO::setOffset
+        semantics).  The mixer's own tables follow the new offsets."""
+        fresh = MultiVfoMixer(offsets_hz, self.samplerate, self.block_len,
+                              device=self.device)
+        assert fresh.n_channels == self.n_channels
+        self.offsets = fresh.offsets
+        self._fine_t = fresh._fine_t
+        self._coarse_t = fresh._coarse_t
+        self._delta = fresh._delta
+        return {"phase": state["phase"], **self._tables()}
+
+    def _angles(self, state):
+        coarse, fine = state["coarse"], state["fine"]
+        C = coarse.shape[0]
+        return (coarse[:, :, None] + fine[:, None, :]).reshape(C, -1)[
+            :, : self.block_len]
+
+    def __call__(self, state, x):
+        n = x.shape[-1]
+        assert n == self.block_len, (
+            f"MultiVfoMixer built for block_len={self.block_len}, got {n}")
+        phase = state["phase"]
+        angles = self._angles(state) + phase[:, None]
+        rot = torch.complex(torch.cos(angles), torch.sin(angles))
+        y = x * rot if x.ndim > 1 else x[None, :] * rot
+        new_phase = torch.remainder(phase + state["delta"], _TWO_PI)
+        return {**state, "phase": new_phase}, y
+
+    def rotate_blocks(self, state, y, K: int):
+        """Rotate K consecutive blocks ``y: (C, K*block_len)`` in one pass.
+
+        Block j starts at phase + j*delta (mod 2pi), accumulated
+        hierarchically (j = q*Q + r) in float32 exactly as the reference.
+        """
+        n = y.shape[-1]
+        assert n == K * self.block_len, (n, K, self.block_len)
+        phase, delta = state["phase"], state["delta"]
+        angles = self._angles(state)
+        C = angles.shape[0]
+        Q = max(1, int(np.sqrt(K)))
+        deltaQ = torch.remainder(delta * np.float32(Q), _TWO_PI)
+        q = torch.arange(-(-K // Q), dtype=torch.float32, device=y.device)
+        r = torch.arange(Q, dtype=torch.float32, device=y.device)
+        ph = torch.remainder(
+            phase[:, None, None]
+            + deltaQ[:, None, None] * q[None, :, None]
+            + delta[:, None, None] * r[None, None, :],
+            _TWO_PI,
+        ).reshape(C, -1)[:, :K]
+        ang = angles[:, None, :] + ph[:, :, None]  # (C, K, n_blk)
+        rot = torch.complex(torch.cos(ang), torch.sin(ang))
+        out = (y.reshape(C, K, self.block_len) * rot).reshape(C, n)
+        new_phase = torch.remainder(ph[:, K - 1] + delta, _TWO_PI)
+        return {**state, "phase": new_phase}, out
+
+
+def _cascade_equivalent_taps(stages) -> np.ndarray:
+    """Collapse a decimating-FIR cascade into one full-rate filter (noble
+    identity), float64 host math."""
+    h = np.asarray(stages[0][0], np.float64)
+    rate_mult = int(stages[0][1])
+    for taps, M in stages[1:]:
+        taps = np.asarray(taps, np.float64)
+        up = np.zeros((len(taps) - 1) * rate_mult + 1, np.float64)
+        up[::rate_mult] = taps
+        h = np.convolve(h, up)
+        rate_mult *= int(M)
+    return h
+
+
+def _plan_fft_chunks(block_len: int, R: int, t_eq: int,
+                     n_channels: int = 1) -> tuple[int, int]:
+    """Pick (valid, nfft) for chunked overlap-save decimation.
+
+    The reference's plan, kept identical so both packages build the same
+    chunks and fold table: valid divides block_len, valid % R == 0,
+    nfft = R * 2^a * 5^b >= valid + t_eq - 1, minimizing its cost model
+    (FFT flops + fold MACs + filter-table bytes).  The model's weights
+    were fitted on a TPU and are not measured on the card.
+    """
+    nice = sorted(
+        R * (2 ** a) * (5 ** b)
+        for a in range(1, 28)
+        for b in range(0, 7)
+        if R * (2 ** a) * (5 ** b) <= 2 ** 24
+    )
+    C = max(1, int(n_channels))
+    best = None
+    v = R
+    while v <= block_len:
+        if block_len % v == 0:
+            need = v + t_eq - 1
+            for nfft in nice:
+                if nfft >= need:
+                    P = block_len // v
+                    fft = 5.0 * P * nfft * np.log2(nfft)
+                    fold = 8.0 * C * P * nfft * (128.0 / min(P, 128))
+                    table = 200.0 * C * nfft
+                    cost = fft + fold + table
+                    if best is None or cost < best[0]:
+                        best = (cost, v, nfft)
+                    break
+        v += R
+    if best is None:
+        raise ValueError(
+            f"no FFT chunk plan for block_len={block_len}, R={R}, T={t_eq}")
+    return best[1], best[2]
+
+
+class FftDecimatorChain(StreamOp):
+    """Fused mix + decimate in the frequency domain (overlap-save).
+
+    Per-channel modulated taps act on the shared wideband input as one
+    equivalent full-rate filter (`_cascade_equivalent_taps`); with
+    ``ext = [tail ++ x]`` and P chunks per window:
+
+        ct = chunk_poly(ext)              (P, R, nif)  CUDA kernel K1
+        F  = fft_nif(ct)                  polyphase-split forward FFT
+        S  = einsum("psk,csk->cpk", F, G) alias fold (outer FFT stage in G)
+        y  = ifft(S)[:, :, m0 : m0 + valid/R]
+
+    then the residual rotator at the decimated rate, unless
+    ``skip_rotator`` hands it to the FM discriminator (`residual_omega`).
+    """
+
+    def __init__(self, offsets_hz, samplerate, stages, block_len,
+                 skip_rotator=False, sparse_thresh_db: float | None = None,
+                 device="cuda"):
+        if sparse_thresh_db is not None:
+            raise NotImplementedError("the sparse alias fold " + _NOT_PORTED)
+        self.device = resolve_device(device)
+        offsets = np.asarray(offsets_hz, np.float64)
+        self.n_channels = len(offsets)
+        omega_p = -_TWO_PI * offsets / float(samplerate)
+        h_eq = _cascade_equivalent_taps(stages)
+        t_eq = len(h_eq)
+        R = 1
+        for _, M in stages:
+            R *= int(M)
+        self.ratio = R
+        n = int(block_len)
+        assert n % R == 0, (n, R)
+        self.block_len = n
+        valid, nfft = _plan_fft_chunks(n, R, t_eq, self.n_channels)
+        self.valid, self.nfft = valid, nfft
+        self.tpad = nfft - valid + 1
+        self.n_chunks = n // valid
+        self.nif = nfft // R
+        h_pad = np.zeros(self.tpad, np.float64)
+        h_pad[self.tpad - t_eq:] = h_eq
+        t_idx = np.arange(self.tpad, dtype=np.float64)
+        hm = h_pad[None, :] * np.exp(
+            1j * np.mod(omega_p[:, None] * t_idx, _TWO_PI))  # (C, Tpad)
+        hf = np.fft.fft(hm[:, ::-1], nfft, axis=-1)  # (C, nfft)
+        # Polyphase-split forward transform: n = q*R + s, so only
+        # length-nif FFTs run; the outer Cooley-Tukey stage and 1/R fold
+        # into G[c,s,k] = (1/R) e^{-2pi i s k/nfft} DFT_R(hf[c,:,k])[s].
+        s_idx = np.arange(R, dtype=np.float64)
+        k_idx = np.arange(self.nif, dtype=np.float64)
+        tw = np.exp(-2j * np.pi * np.outer(s_idx, k_idx) / nfft)
+        G = np.fft.fft(hf.reshape(self.n_channels, R, self.nif), axis=1)
+        self._g_folded = np.ascontiguousarray(
+            G * tw[None, :, :] / R).astype(np.complex64)
+        self.rot = MultiVfoMixer(-offsets, samplerate / R, n // R,
+                                 device=self.device)
+        # taps modulated over the PADDED index: the rotator phase cancels
+        # the constant e^{j w' (tpad - t_eq)} with phase0 = -w'(tpad-1)
+        self._phase0 = np.mod(-omega_p * (self.tpad - 1), _TWO_PI).astype(
+            np.float32)
+        self.skip_rotator = bool(skip_rotator)
+        self.residual_omega = np.mod(
+            -_TWO_PI * offsets * R / float(samplerate), _TWO_PI
+        ).astype(np.float32)
+
+    def init_state(self):
+        rot = self.rot.init_state()
+        rot["phase"] = torch.as_tensor(self._phase0.copy(), device=self.device)
+        return {
+            "tail": torch.zeros(self.tpad - 1, dtype=torch.complex64,
+                                device=self.device),
+            "rot": rot,
+            "hf": torch.as_tensor(self._g_folded, device=self.device),
+        }
+
+    def retune_state(self, state, offsets_hz, samplerate: float,
+                     stages) -> dict:
+        """Swap the offset-dependent tables (fold table, rotator tables);
+        keep the wideband tail.  Each channel's accumulated rotator phase
+        is carried over in float32 (minus the old group-delay constant,
+        plus the new), so unmoved channels see no phase step."""
+        fresh = FftDecimatorChain(offsets_hz, samplerate, stages,
+                                  self.block_len,
+                                  skip_rotator=self.skip_rotator,
+                                  device=self.device)
+        assert fresh.nfft == self.nfft and fresh.ratio == self.ratio, (
+            "retune changed the FFT plan; rebuild the chain instead")
+        new = fresh.init_state()
+        new["tail"] = state["tail"]
+        phase = state["rot"]["phase"].to(torch.float32)
+        new["rot"]["phase"] = torch.remainder(
+            phase - torch.as_tensor(self._phase0, device=phase.device)
+            + torch.as_tensor(fresh._phase0, device=phase.device),
+            _TWO_PI,
+        )
+        self._g_folded = fresh._g_folded
+        self._phase0 = fresh._phase0
+        self.rot = fresh.rot
+        self.residual_omega = fresh.residual_omega
+        return new
+
+    def out_len(self, n: int) -> int:
+        return n // self.ratio
+
+    def __call__(self, state, x):
+        n = x.shape[-1]
+        assert n % self.block_len == 0, (n, self.block_len)
+        K = n // self.block_len
+        assert x.ndim == 1, "FFT channelizer front takes the shared wideband"
+        ext = torch.cat([state["tail"], x.to(torch.complex64)])
+        new_tail = ext[n:].clone()
+        # any multiple of block_len runs as one window: P scales with K
+        P = K * self.n_chunks
+        ct = chunk_poly(ext, self.valid, self.ratio, self.nif, P)
+        Fp = torch.fft.fft(ct)  # (P, R, nif)
+        S = torch.einsum("psk,csk->cpk", Fp, state["hf"])
+        y = torch.fft.ifft(S)  # (C, P, nif)
+        m0 = (self.tpad - 1) // self.ratio
+        y = y[:, :, m0 : m0 + self.valid // self.ratio]
+        y = y.reshape(y.shape[0], n // self.ratio)
+        if self.skip_rotator:
+            st_rot = state["rot"]
+        elif K == 1:
+            st_rot, y = self.rot(state["rot"], y)
+        else:
+            st_rot, y = self.rot.rotate_blocks(state["rot"], y, K)
+        return {"tail": new_tail, "rot": st_rot, "hf": state["hf"]}, y
+
+
+class Channelizer(StreamOp):
+    """N simultaneous VFOs at one output rate: the fft front end
+    (`FftDecimatorChain`), the resampler's fractional tail if any, and an
+    optional channel lowpass.  ``method``: "auto" or "fft"."""
+
+    def __init__(self, offsets_hz, in_samplerate: float,
+                 out_samplerate: float, block_len: int,
+                 low_pass_bw: float | None = None, method: str = "auto",
+                 sparse_thresh_db: float | None = None,
+                 skip_rotator: bool = False, device="cuda"):
+        self.device = resolve_device(device)
+        self.offsets = np.asarray(offsets_hz, np.float64)
+        self.skip_rotator = bool(skip_rotator)
+        self.resampler = RationalResampler(in_samplerate, out_samplerate,
+                                           device=self.device)
+        assert block_len % self.resampler.block_multiple() == 0, (
+            f"block_len {block_len} not a multiple of "
+            f"{self.resampler.block_multiple()}")
+        self.n_channels = len(self.offsets)
+        self.block_len = int(block_len)
+        if method not in ("auto", "fft"):
+            raise NotImplementedError(f"Channelizer method {method!r} "
+                                      + _NOT_PORTED)
+        pre = self.resampler.predecim
+        if pre is None or not pre.stages:
+            raise NotImplementedError(
+                "a channelizer without integer predecimation (the 'xla' "
+                "mixer + resampler path) " + _NOT_PORTED)
+        stages = self._stages()
+        # the reference's "auto" falls back to time-domain paths when no
+        # chunk plan exists; those are not ported, so the plan must exist
+        _plan_fft_chunks(self.block_len, pre.ratio,
+                         len(_cascade_equivalent_taps(stages)))
+        self.method = "fft"
+        # Stricter than the reference: the residual carrier that
+        # skip_rotator leaves in the IF would push the channel out of a
+        # baseband-centered lowpass or fractional resampler downstream,
+        # and residual_omega only holds at the fused chain's output rate.
+        if self.skip_rotator and (low_pass_bw is not None
+                                  or self.resampler.resamp is not None):
+            raise ValueError(
+                "skip_rotator needs an integer in->IF ratio and no "
+                "low_pass_bw (the IF is left un-derotated)")
+        self.fused = FftDecimatorChain(
+            self.offsets, in_samplerate, stages, block_len,
+            skip_rotator=self.skip_rotator,
+            sparse_thresh_db=sparse_thresh_db, device=self.device)
+        if low_pass_bw is not None:
+            self.lpf = Fir(
+                tapsmod.low_pass(low_pass_bw / 2.0, low_pass_bw * 0.05,
+                                 out_samplerate),
+                dtype=torch.complex64, device=self.device)
+        else:
+            self.lpf = None
+
+    def _stages(self):
+        return [(np.asarray(s.taps), s.decimation)
+                for s in self.resampler.predecim.stages]
+
+    def init_state(self):
+        return {
+            "lpf": self.lpf.init_state() if self.lpf else (),
+            "fused": self.fused.init_state(),
+            "rest": (),
+            "poly": (self.resampler.resamp.init_state()
+                     if self.resampler.resamp else ()),
+        }
+
+    def out_len(self, n: int) -> int:
+        return self.resampler.out_len(n)
+
+    def retune_state(self, state, offsets_hz) -> dict:
+        """Move all VFO offsets: the front end swaps its tables and keeps
+        every carried tail."""
+        offsets = np.asarray(offsets_hz, np.float64)
+        assert offsets.shape == self.offsets.shape
+        st = dict(state)
+        st["fused"] = self.fused.retune_state(
+            state["fused"], offsets, self.resampler.in_samplerate,
+            self._stages())
+        self.offsets = offsets
+        return st
+
+    def __call__(self, state, x):
+        st = dict(state)
+        st["fused"], y = self.fused(state["fused"], x)  # (C, n/M)
+        if self.resampler.resamp is not None:
+            st["poly"], y = self.resampler.resamp(state["poly"], y)
+        if self.lpf:
+            st["lpf"], y = self.lpf(state["lpf"], y)
+        return st, y

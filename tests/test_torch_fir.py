@@ -1,0 +1,117 @@
+"""FIR evaluations of sdrtpu_torch against sdrtpu (both on the CPU).
+
+Same inputs (seeded numpy) through each sdrtpu function and its port.
+Tolerances: the shift-and-add, banded-Toeplitz matmul and FFT forms are
+float32 sums taken in another order than the reference's, so outputs
+agree to 2e-6 of the signal peak (about 30 float32 ulps of accumulation
+over 317 taps); streamed state (the input tail) is exact.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from sdrtpu.kernels import fir as jfir  # noqa: E402
+from sdrtpu.kernels import taps as jtaps  # noqa: E402
+from sdrtpu.kernels.iir import Deemphasis as JDeemphasis  # noqa: E402
+from sdrtpu_torch.kernels import fir as tfir  # noqa: E402
+
+# true float32 contractions (the reference's "highest" precision); a
+# no-op on the CPU, stated so the same test reads right on the card
+torch.backends.cuda.matmul.allow_tf32 = False
+
+RNG = np.random.default_rng(5)
+PILOT = 2.0 * np.real(jtaps.band_pass(18750.0, 19250.0, 3000.0, 250000.0,
+                                      odd_tap_count=True))
+DEEMPH = JDeemphasis(50e-6, 48000.0)._fir
+
+
+def _x(shape, cplx):
+    x = RNG.standard_normal(shape)
+    if cplx:
+        x = x + 1j * RNG.standard_normal(shape)
+    return x.astype(np.complex64 if cplx else np.float32)
+
+
+def _close(got, want, rel=2e-6):
+    want = np.asarray(want)
+    got = got.numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, atol=rel * np.abs(want).max())
+
+
+def test_shapes_are_the_flagship_ones():
+    assert PILOT.shape == (317,) and DEEMPH.shape == (60,)
+
+
+@pytest.mark.parametrize("taps,shape,cplx", [
+    (PILOT, (2, 3, 3000), False),   # envelope pilot: (C, n) real MPX
+    (PILOT, (3, 2000), True),
+    (DEEMPH, (2, 3, 1500), False),  # de-emphasis: (2, C, n) stereo audio
+    (DEEMPH.astype(np.complex64) * (1 + 0.5j), (700,), True),
+])
+def test_matmul_correlate_valid(taps, shape, cplx):
+    x = _x(shape, cplx)
+    want = jfir.matmul_correlate_valid(jnp.asarray(x), taps)
+    _close(tfir.matmul_correlate_valid(torch.as_tensor(x), taps), want)
+    # and the direct shift-and-add sum of the same definition
+    _close(tfir.correlate_valid(torch.as_tensor(x), taps),
+           jfir.correlate_valid(jnp.asarray(x), taps))
+
+
+@pytest.mark.parametrize("stride,cplx", [(1, True), (5, True), (8, False)])
+def test_correlate_valid_strided(stride, cplx):
+    taps = jtaps.low_pass(0.1, 0.05, 1.0)
+    x = _x((2, 4000), cplx)
+    _close(tfir.correlate_valid(torch.as_tensor(x), taps, stride=stride),
+           jfir.correlate_valid(jnp.asarray(x), taps, stride=stride))
+
+
+@pytest.mark.parametrize("n,cplx", [(5000, False), (5000, True),
+                                    (70000, True)])
+def test_fft_correlate_valid(n, cplx):
+    """Single-transform and chunked overlap-save plans (n=70000 crosses
+    the 32768 single-FFT limit)."""
+    assert tfir._plan_corr_nfft(n, 317) == jfir._plan_corr_nfft(n, 317)
+    x = _x((2, n), cplx)
+    _close(tfir.fft_correlate_valid(torch.as_tensor(x), PILOT),
+           jfir.fft_correlate_valid(jnp.asarray(x), PILOT), rel=5e-6)
+
+
+@pytest.mark.parametrize("method", ["mm", "direct", "fft"])
+def test_fir_streams_two_blocks(method):
+    dtype = "float32" if method == "mm" else "complex64"
+    jop = jfir.Fir(PILOT, dtype=getattr(jnp, dtype), method=method)
+    top = tfir.Fir(PILOT, dtype=getattr(torch, dtype), method=method,
+                   device="cpu")
+    sj, st = jop.init_state(), top.init_state()
+    for _ in range(2):
+        x = _x((3, 1000), dtype == "complex64")
+        sj, yj = jop(sj, jnp.asarray(x))
+        st, yt = top(st, torch.as_tensor(x))
+        _close(yt, yj, rel=5e-6)
+        np.testing.assert_array_equal(st.numpy(), np.asarray(sj))
+
+
+def test_decimating_fir_streams_two_blocks():
+    taps = jtaps.low_pass(100000.0, 50000.0, 2e6)
+    jop = jfir.DecimatingFir(taps, 8)
+    top = tfir.DecimatingFir(taps, 8, device="cpu")
+    sj, st = jop.init_state(), top.init_state()
+    for _ in range(2):
+        x = _x((4000,), True)
+        sj, yj = jop(sj, jnp.asarray(x))
+        st, yt = top(st, torch.as_tensor(x))
+        _close(yt, yj)
+        np.testing.assert_array_equal(st.numpy(), np.asarray(sj))
+
+
+def test_cuda_default_raises_without_a_card():
+    """Constructors default to the card and never fall back quietly."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tfir.Fir(PILOT)
