@@ -1,9 +1,10 @@
-"""Drive sdrtpu_torch's main path on one NVIDIA GPU and check it.
+"""Drive sdrtpu_torch's main paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py            # one card; exits non-zero on any failure
     python3 chip_smoke.py --profile FILE  # also writes the torch.profiler
-                                          # table of 4 steady-state
-                                          # sub-windows to FILE
+                                          # tables of 4 steady-state
+                                          # sub-windows of each path to
+                                          # FILE (fft) and FILE.pallas
 
 Phases, each fatal:
 
@@ -11,17 +12,23 @@ Phases, each fatal:
 2. build: every hand-written kernel from ``sdrtpu_torch/csrc`` (nvcc,
    one process per source, started together);
 3. kernel check: each kernel against its plain PyTorch version on the
-   card at the shapes the main path and the tests use (chunk_poly is
-   data movement, so exact), with its time beside its bound;
-4. flagship: the 8-VFO WBFM pipeline off a 10 Msps capture, 500k-sample
-   blocks, 65536-bin waterfall at 20 Hz, ``skip_rotator=True``, through
-   ``scan_repeat`` over 256 blocks; every kernel's launch count is read
-   around that run; then the same port runs on the CPU from the card's
-   mid-stream state, and the card's audio and waterfall are held
-   against it.
+   card at the shapes the main paths and the tests use (chunk_poly is
+   data movement, so exact; mix_decimate within 1e-5 of the plain
+   version's peak), with its time beside its bound;
+4. fft flagship: the 8-VFO WBFM pipeline off a 10 Msps capture,
+   500k-sample blocks, 65536-bin waterfall at 20 Hz, ``skip_rotator``,
+   through ``scan_repeat`` over 256 blocks;
+5. pallas path: the same pipeline with ``channelizer_method="pallas"``
+   (stage 1 in mix_decimate, one launch per block) and the rotator on.
 
-Standard output: the card line, the ``kernels`` JSON line, the flagship
-line, and last ``{"ok": true, "device": {...}}``.
+Around each path's 256-block run every kernel's launch count is set to 0
+and read (fft: chunk_poly 32, mix_decimate 0; pallas: 256 and 0); then
+the same port runs on the CPU from the card's mid-stream state, and the
+card's audio and waterfall are held against it.
+
+Standard output: the card line, the ``kernels`` JSON line, the fft
+flagship line, the pallas path line, and last
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -36,6 +43,8 @@ import numpy as np
 import torch
 
 H100_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
+H100_FP32_FLOPS = 67e12    # H100 SXM fp32 outside the tensor cores
+K2_REL_TOL = 1e-5  # mix_decimate vs plain: max_abs_err / max|plain|
 AUDIO_ATOL = 2e-4  # card vs CPU audio, as tests/test_torch_pipeline.py
 SPEC_DB_ATOL = 0.02  # card vs CPU waterfall bins within 80 dB of the peak
 
@@ -194,6 +203,116 @@ def phase_kernels(flagship_plan) -> list[dict]:
     }]
 
 
+def phase_mix_decimate() -> dict:
+    """mix_decimate against mix_decimate_ref at every checked shape,
+    within K2_REL_TOL of the plain version's peak, each timed beside its
+    plain version and the two-call library copy (one elementwise mix,
+    then one strided ``F.conv1d``).  The JSON entry's own numbers are at
+    the flagship block (what the pallas path launches)."""
+    import torch.nn.functional as F
+
+    from sdrtpu_torch.kernels import fused_channelizer as fc
+    from sdrtpu_torch.kernels.resample import RationalResampler
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    rng = np.random.default_rng(5)
+    stage1 = {fs: RationalResampler(fs, 250e3, device="cpu").predecim.stages[0]
+              for fs in (10e6, 50e6)}
+    flagship = (8, 10e6, 500_000)
+    shapes = [  # (C, fs, n, M, T): tests/test_pallas_channelizer.py shapes
+        (4, 10e6, fc.TILE_IN, 8, 36), (4, 10e6, fc.TILE_IN, 4, 20),
+        (2, 10e6, fc.TILE_IN + 40000, 8, 36),
+        flagship,                  # 8-VFO flagship block, its own taps
+        (64, 50e6, 2_500_000),     # 64-VFO plan block, its own taps
+    ]
+    worst = 0.0
+    rows = {}
+    for shape in shapes:
+        C, fs, n = shape[:3]
+        if len(shape) == 5:
+            M, T = shape[3:]
+            h = rng.standard_normal(T).astype(np.float32)
+            h /= np.abs(h).sum()
+        else:
+            h, M = np.asarray(stage1[fs].taps), stage1[fs].decimation
+        stage = fc.FusedChannelizerStage(
+            np.linspace(-0.4 * fs, 0.4 * fs, C), fs, h, M, n, device="cuda")
+        T = stage.T
+        tail = torch.randn(T - 1, dtype=torch.complex64, device="cuda",
+                           generator=gen)
+        x = torch.randn(n, dtype=torch.complex64, device="cuda", generator=gen)
+        phase = torch.rand(C, device="cuda", generator=gen) * 6.28
+        args = (tail, x, stage._coarse, stage._fine, stage._taps, phase, M)
+        got = fc.mix_decimate(*args)
+        want = fc.mix_decimate_ref(*args)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        scale = want.abs().max().item()
+        if not err <= K2_REL_TOL * scale:
+            raise AssertionError(f"mix_decimate disagrees at {(C, n, M, T)}: "
+                                 f"max_abs_err {err}, peak {scale}")
+        worst = max(worst, err / scale)
+
+        # the library copy: rotation table materialised beforehand
+        ext = torch.cat([tail, x])
+        e = torch.arange(ext.shape[0], device="cuda")
+        c_rot = stage._coarse * torch.exp(1j * phase)[:, None]
+        rot = c_rot[:, e // fc.ROW] * stage._fine[:, e % fc.ROW]
+        w = stage._taps.expand(2, 1, T).contiguous()  # conv1d correlates
+
+        def library(ext=ext, rot=rot, w=w, M=M):
+            mixed = torch.view_as_real(ext[None, :] * rot).permute(0, 2, 1)
+            return F.conv1d(mixed, w, stride=M, groups=2)
+
+        lib = library()
+        lib_err = (torch.complex(lib[:, 0], lib[:, 1]) - want).abs().max().item()
+        del rot, lib
+        nbytes = sum(a.numel() * a.element_size() for a in args[:-1]) + (
+            got.numel() * got.element_size())
+        flops = C * (n + T - 1) * 12 + C * (n // M) * 4 * T
+        t = {"shape": [C, n, M, T], "max_abs_err": err, "peak": scale,
+             "library_max_abs_err": lib_err,
+             "bytes": nbytes, "flops": flops,
+             "bound_ms": max(nbytes / H100_BYTES_PER_S,
+                             flops / H100_FP32_FLOPS) * 1e3,
+             "bound_by": ("bytes" if nbytes / H100_BYTES_PER_S
+                          >= flops / H100_FP32_FLOPS else "operations")}
+        fns = {"": lambda: fc.mix_decimate(*args),
+               "plain_": lambda: fc.mix_decimate_ref(*args),
+               "library_": library}
+        for key, fn in fns.items():
+            t[key + "ms"] = device_ms(fn, 20)
+            t[key + "event_ms"] = cuda_ms(fn, 20)
+        rows[shape] = t
+        log(f"mix_decimate {(C, n, M, T)}: {t}")
+        del ext, e, c_rot, w, args, got, want
+        torch.cuda.empty_cache()
+    main = rows[flagship]
+    return {
+        "name": "mix_decimate",
+        "route": "cuda",
+        "source": "sdrtpu_torch/csrc/mix_decimate.cu",
+        "replaces": "sdrtpu/kernels/pallas_channelizer.py:68",
+        "launches": None,  # filled in from the pallas path's run
+        "max_abs_err": main["max_abs_err"],
+        "rel_tol": K2_REL_TOL,
+        "worst_rel_err": worst,
+        "ms": main["ms"],
+        "kernel_ms": main["ms"],
+        "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"],
+        # one elementwise mix + one strided F.conv1d: no single call
+        "library_ms": main["library_ms"],
+        "library_calls": 2,
+        "event_ms": main["event_ms"],
+        "plain_event_ms": main["plain_event_ms"],
+        "library_event_ms": main["library_event_ms"],
+        "shape": main["shape"],
+        "other_shapes": [v for k, v in rows.items() if k != flagship],
+    }
+
+
 def flagship_capture(offsets, fs, n) -> np.ndarray:
     """bench.py's synthetic capture: one FM station with a tone program
     at each VFO offset."""
@@ -222,24 +341,35 @@ def stereo_capture(offsets, fs, n) -> np.ndarray:
     return x.astype(np.complex64)
 
 
-def build_flagship(device):
+def build_flagship(device, method: str = "fft"):
+    """The 8-VFO flagship; the fft path skips the residual rotator (the
+    benchmark default), the others must keep it."""
     from sdrtpu_torch.apps.wbfm_pipeline import WbfmMultiVfoPipeline
 
     fs, n_vfo, block = 10_000_000.0, 8, 500_000
     offsets = np.linspace(-0.4 * fs, 0.4 * fs, n_vfo)
     pipe = WbfmMultiVfoPipeline(offsets, fs, block, spectrum=True,
                                 fft_size=65536, fft_rate=20.0,
-                                skip_rotator=True, device=device)
+                                channelizer_method=method,
+                                skip_rotator=method == "fft", device=device)
+    assert pipe.channelizer.method == method
     return pipe, flagship_capture(offsets, fs, block)
 
 
-def phase_flagship(card: str, kernels: list[dict], K: int = 256,
-                   profile_path: str | None = None) -> dict:
-    from sdrtpu_torch.convert import state_from_jax, state_to_numpy
-    from sdrtpu_torch.kernels import chunks
+def kernel_counters() -> dict:
+    from sdrtpu_torch.kernels import chunks, fused_channelizer
 
-    pipe, x_host = build_flagship("cuda")
-    fused = pipe.channelizer.fused
+    return {"chunk_poly": chunks.chunk_poly,
+            "mix_decimate": fused_channelizer.mix_decimate}
+
+
+def phase_path(card: str, method: str, K: int = 256,
+               profile_path: str | None = None) -> dict:
+    """One path of the flagship on the card: launch counts around a
+    K-block ``scan_repeat``, card vs CPU, throughput, device busy."""
+    from sdrtpu_torch.convert import state_from_jax, state_to_numpy
+
+    pipe, x_host = build_flagship("cuda", method)
     block = pipe.block_len
     x = torch.as_tensor(x_host, device="cuda")
     state = pipe.init_state()
@@ -248,16 +378,16 @@ def phase_flagship(card: str, kernels: list[dict], K: int = 256,
     state, _ = pipe.scan_repeat(state, x, sub)
     torch.cuda.synchronize()
 
-    counts = {"chunk_poly": chunks.chunk_poly}
-    for fn in counts.values():
+    counters = kernel_counters()
+    for fn in counters.values():
         fn.launches = 0
     state, (audio, spec) = pipe.scan_repeat(state, x, K)
     torch.cuda.synchronize()
-    launches = {name: fn.launches for name, fn in counts.items()}
-    for k in kernels:
-        k["launches"] = launches[k["name"]]
-        if k["launches"] < 1:
-            raise AssertionError(f"{k['name']} never launched on the main path")
+    launches = {name: fn.launches for name, fn in counters.items()}
+    want = ({"chunk_poly": K // sub, "mix_decimate": 0} if method == "fft"
+            else {"chunk_poly": 0, "mix_decimate": K})
+    if launches != want:
+        raise AssertionError(f"{method} path launched {launches}, want {want}")
 
     n_af = pipe.out_len(block)
     assert audio.shape == (K, 2, 8, n_af), audio.shape
@@ -273,7 +403,7 @@ def phase_flagship(card: str, kernels: list[dict], K: int = 256,
     # normalisation divides rounding noise: reported, not held) and
     # (b) two blocks of a stereo capture with a 19 kHz pilot, whose
     # second block is held at AUDIO_ATOL (the first refills the filters)
-    cpu_pipe, _ = build_flagship("cpu")
+    cpu_pipe, _ = build_flagship("cpu", method)
     host_state = state_to_numpy(state)
     _, (a_cpu, _) = cpu_pipe(state_from_jax(host_state, "cpu"),
                              torch.as_tensor(x_host))
@@ -289,12 +419,13 @@ def phase_flagship(card: str, kernels: list[dict], K: int = 256,
         st_g, (a_gpu, s_gpu) = pipe(st_g, torch.as_tensor(xb, device="cuda"))
     a_err = (a_gpu.cpu() - a_cpu).abs().max().item()
     if not a_err <= AUDIO_ATOL:
-        raise AssertionError(f"card audio vs CPU: max_abs_err {a_err}")
+        raise AssertionError(f"{method}: card audio vs CPU: max_abs_err {a_err}")
     s_gpu = s_gpu.cpu()
     live = s_cpu > s_cpu.amax(dim=-1, keepdim=True) - 80.0
     s_err = (s_gpu - s_cpu)[live].abs().max().item()
     if not s_err <= SPEC_DB_ATOL:
-        raise AssertionError(f"card waterfall vs CPU: max_abs_err {s_err} dB")
+        raise AssertionError(
+            f"{method}: card waterfall vs CPU: max_abs_err {s_err} dB")
     tail_err = (st_g["chan"]["fused"]["tail"].cpu()
                 - st_c["chan"]["fused"]["tail"]).abs().max().item()
     assert tail_err == 0.0, tail_err
@@ -316,18 +447,27 @@ def phase_flagship(card: str, kernels: list[dict], K: int = 256,
     if profile_path:
         os.makedirs(os.path.dirname(profile_path) or ".", exist_ok=True)
         with open(profile_path, "w") as fh:
-            fh.write(f"{card}\n4 sub-windows of {sub} blocks; wall "
-                     f"{p_wall * 1e3:.3f} ms under the profiler; device busy "
-                     f"{busy_us / 1e3:.3f} ms\n")
+            fh.write(f"{card}\n{method} path: 4 sub-windows of {sub} blocks; "
+                     f"wall {p_wall * 1e3:.3f} ms under the profiler; device "
+                     f"busy {busy_us / 1e3:.3f} ms\n")
             fh.write(prof.key_averages().table(
                 sort_by="self_cuda_time_total", row_limit=40))
         log(f"profile -> {profile_path}")
 
-    result = {
+    ch = pipe.channelizer
+    if method == "fft":
+        what = "skip_rotator"
+        plan = [ch.fused.valid, ch.fused.ratio, ch.fused.nif, ch.fused.nfft]
+    else:
+        what = "channelizer pallas, rotator on"
+        plan = [[ch.fused.decim, ch.fused.T]] + [
+            [s.decimation, s.ntaps] for s in ch.rest_stages]
+    return {
         "flagship": "wbfm 8 VFO, 10 Msps, 500k-sample blocks, waterfall "
-                    "65536 @ 20 Hz, skip_rotator",
+                    f"65536 @ 20 Hz, {what}",
         "K": K, "sub_window_blocks": sub,
-        "plan": [fused.valid, fused.ratio, fused.nif, fused.nfft],
+        "plan": plan,
+        "kernel_launches": launches,
         "msps": K * block / dt / 1e6,  # median pass
         "msps_passes": [K * block / t / 1e6 for t in passes],
         "ms_per_block": dt * 1e3 / K,
@@ -340,7 +480,6 @@ def phase_flagship(card: str, kernels: list[dict], K: int = 256,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
         "card": card,
     }
-    return result
 
 
 def main(argv) -> int:
@@ -348,14 +487,27 @@ def main(argv) -> int:
     phase_build()
     plan_pipe, _ = build_flagship("cpu")
     fused = plan_pipe.channelizer.fused
-    # the main path launches chunk_poly once per sub-window of blocks
+    # the fft path launches chunk_poly once per sub-window of blocks
     kernels = phase_kernels((fused.valid, fused.ratio, fused.nif,
                              fused.n_chunks * plan_pipe._subk(256)))
+    kernels.append(phase_mix_decimate())
     profile_path = (argv[argv.index("--profile") + 1]
                     if "--profile" in argv else None)
-    flag = phase_flagship(dev["card"], kernels, profile_path=profile_path)
+    paths = {}
+    for method, kernel in (("fft", "chunk_poly"), ("pallas", "mix_decimate")):
+        torch.cuda.reset_peak_memory_stats()
+        paths[method] = phase_path(
+            dev["card"], method,
+            profile_path=(profile_path + (".pallas" if method == "pallas"
+                                          else "")
+                          if profile_path else None))
+        # each kernel's launches are read on its own path
+        for k in kernels:
+            if k["name"] == kernel:
+                k["launches"] = paths[method]["kernel_launches"][kernel]
     print(json.dumps({"kernels": kernels}), flush=True)
-    print(json.dumps(flag), flush=True)
+    print(json.dumps(paths["fft"]), flush=True)
+    print(json.dumps(paths["pallas"]), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": dev["kind"], "count": dev["count"]}}),
         flush=True)

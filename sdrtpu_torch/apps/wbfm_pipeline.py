@@ -8,10 +8,13 @@ PyTorch counterpart of ``sdrtpu/apps/wbfm_pipeline.py``:
                     Deemphasis 50 us                   -> audio out
       waterfall:    SpectrumAnalyzer on the wideband   -> (frames, fft_size) dB
 
-Steady state (`scan_call`/`scan_repeat`): the overlap-save channelizer
-takes any multiple of ``block_len`` as one window, so each sub-window of
-blocks runs once through the whole chain (`_batched`) and only the
-sub-windows are a Python loop.
+Steady state (`scan_call`/`scan_repeat`), in sub-windows of blocks:
+
+- the fft channelizer takes any multiple of ``block_len`` as one window,
+  so each sub-window runs once through the whole chain (`_batched`);
+- the other channelizer methods ("pallas", "xla-fused", "xla") take one
+  block per call, so the front end runs once per block in a Python loop
+  (`_front_window`) and the IF-rate back end once per sub-window.
 """
 
 from __future__ import annotations
@@ -156,6 +159,31 @@ class WbfmMultiVfoPipeline(StreamOp):
                 if self.spectrum is not None else ())
         return self._back_end(st, state, y, segs, K)
 
+    def _front_body(self, chan_state, xb):
+        """One block through the channelizer, plus its waterfall segments."""
+        chan_state, y = self.channelizer(chan_state, xb)
+        segs = self.spectrum.extract(xb) if self.spectrum is not None else ()
+        return chan_state, (y, segs)
+
+    def _back_batch(self, state, chan_state, ys, segs, K: int):
+        """Per-block IF ``ys`` (K of (C, n_if)) and segments -> outputs."""
+        st = {"chan": chan_state}
+        y = torch.cat(ys, dim=-1)  # (C, K*n_if)
+        if self.spectrum is not None:
+            segs = torch.cat(segs)  # (K*frames, nz)
+        return self._back_end(st, state, y, segs, K)
+
+    def _front_window(self, state, blocks, K: int):
+        """Per-block front end over the K ``blocks`` of one sub-window,
+        then the shared back end once: the path of the channelizer
+        methods that take one block per call."""
+        chan_state, ys, segs = state["chan"], [], []
+        for xb in blocks:
+            chan_state, (y, seg) = self._front_body(chan_state, xb)
+            ys.append(y)
+            segs.append(seg)
+        return self._back_batch(state, chan_state, ys, segs, K)
+
     def _subk(self, K: int) -> int:
         """Blocks per sub-window: floor(sub_samples / block_len), at
         least 1, lowered until it divides K."""
@@ -178,25 +206,39 @@ class WbfmMultiVfoPipeline(StreamOp):
         (audio ``(K, 2, C, n_af)``, spectra ``(K, frames, fft_size)``)."""
         K = xs.shape[0]
         sub = self._subk(K)
-        xw = xs.reshape(K // sub, sub * xs.shape[-1])
-        if sub == K:
-            return self._batched(state, xw[0], K)
-        outs = []
-        for xsub in xw:
-            state, out = self._batched(state, xsub, sub)
-            outs.append(out)
-        return state, self._unstack(outs, K, K // sub, sub)
+        if self.channelizer.method == "fft":
+            windows = xs.reshape(K // sub, sub * xs.shape[-1])
+
+            def run(state, xw):
+                return self._batched(state, xw, sub)
+        else:
+            windows = xs.reshape(K // sub, sub, xs.shape[-1])
+
+            def run(state, xw):
+                return self._front_window(state, xw, sub)
+        return self._windows(state, run, windows, K, sub)
 
     def scan_repeat(self, state, x, K: int):
         """Like `scan_call` on K copies of ONE device-resident block (the
         benchmark steady state)."""
         n = x.shape[-1]
         sub = self._subk(K)
-        x_sub = x[None, :].expand(sub, n).reshape(-1)
+        if self.channelizer.method == "fft":
+            x_sub = x[None, :].expand(sub, n).reshape(-1)
+
+            def run(state, _):
+                return self._batched(state, x_sub, sub)
+        else:
+            def run(state, _):
+                return self._front_window(state, [x] * sub, sub)
+        return self._windows(state, run, [None] * (K // sub), K, sub)
+
+    def _windows(self, state, run, windows, K: int, sub: int):
+        """``run`` over the sub-windows in order, outputs as (K, ...)."""
         if sub == K:
-            return self._batched(state, x_sub, K)
+            return run(state, windows[0])
         outs = []
-        for _ in range(K // sub):
-            state, out = self._batched(state, x_sub, sub)
+        for xw in windows:
+            state, out = run(state, xw)
             outs.append(out)
         return state, self._unstack(outs, K, K // sub, sub)

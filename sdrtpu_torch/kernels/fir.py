@@ -6,7 +6,9 @@ as stored; state is the trailing ``taps - 1`` input samples.
 
 Three evaluations of the same sum:
 
-- `correlate_valid`: shift-and-add over the taps (short filters);
+- `correlate_valid`: shift-and-add over the taps (short filters), and
+  `correlate_valid_bank` for a bank of per-channel taps (the xla-fused
+  channelizer's modulated taps);
 - `matmul_correlate_valid`: banded-Toeplitz matmuls on shifted row views
   (the WFM pilot and de-emphasis paths);
 - `fft_correlate_valid`: FFT overlap-save (long filters).
@@ -54,6 +56,39 @@ def correlate_valid(x: torch.Tensor, taps, stride: int = 1) -> torch.Tensor:
         seg = x[..., t : t + (A - 1) * M + 1 : M]
         term = vals[t] * seg
         acc = term if acc is None else acc + term
+    return acc
+
+
+def correlate_valid_bank(x: torch.Tensor, taps_bank, stride: int = 1,
+                         live=None) -> torch.Tensor:
+    """Valid correlation against a bank of per-channel taps ``(C, T)``.
+
+    ``x`` 1-D ``(n,)`` is one shared signal:
+    ``out[c, i] = sum_t x[i*stride + t] * taps_bank[c, t]``; ``x`` 2-D
+    ``(C, n)`` filters each channel with its own taps.  ``taps_bank`` is a
+    host array (all-zero tap columns are skipped) or a tensor on ``x``'s
+    device (every column, unless the caller passes the ``live`` column
+    list).  Shift-and-add over the taps, summed in tap order.
+    """
+    host = isinstance(taps_bank, np.ndarray)
+    taps = torch.as_tensor(taps_bank, device=x.device)
+    assert x.ndim in (1, 2) and taps.ndim == 2
+    if taps.is_complex() and not x.is_complex():
+        x = x.to(torch.complex64)
+    C, T = taps.shape
+    shared = x.ndim == 1
+    if not shared:
+        assert x.shape[0] == C
+    if live is None:
+        live = ([t for t in range(T) if np.any(taps_bank[:, t] != 0)]
+                if host else range(T))
+    M = int(stride)
+    A = (int(x.shape[-1]) - T) // M + 1
+    out_dtype = torch.complex64 if taps.is_complex() else x.dtype
+    acc = torch.zeros((C, A), dtype=out_dtype, device=x.device)
+    for t in live:
+        seg = x[..., t : t + (A - 1) * M + 1 : M]
+        acc = acc + taps[:, t, None] * (seg[None, :] if shared else seg)
     return acc
 
 

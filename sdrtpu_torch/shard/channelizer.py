@@ -7,11 +7,16 @@ The N VFOs are one more tensor axis.  Ported here:
 - `FftDecimatorChain`, the dense alias-fold path: overlap-save chunks in
   polyphase layout from the CUDA kernel `chunk_poly`, a length-nif FFT
   batch, the fold against the host-built table ``G``, then ifft and trim;
-- `Channelizer` with ``method`` "auto"/"fft".
+- `ModulatedDecimatorChain`, the time-domain path: the mixer folded into
+  per-channel modulated taps of each decimation stage
+  (`correlate_valid_bank`), one residual rotator at the output rate;
+- `Channelizer` with ``method`` "auto", "fft", "xla-fused", "xla" (the
+  plain `MultiVfoMixer` + `RationalResampler`) and "pallas" (stage 1 in
+  the fused mix + decimate CUDA kernel K2, `FusedChannelizerStage`, then
+  the remaining predecimation stages and the fractional tail).
 
 Not ported yet (each raises NotImplementedError; ROADMAP.md M11): the
-sparse fold, `ModulatedDecimatorChain` ("xla-fused"), the plain mixer +
-resampler path ("xla"), "pfb" and the fused "pallas" stage (kernel K2).
+sparse fold and "pfb".
 
 Offset-dependent tables (the fold table ``hf`` and the rotator tables)
 live in the state on the device, so a retune is a host rebuild and a
@@ -27,14 +32,16 @@ from .. import resolve_device
 from ..graph.block import StreamOp
 from ..kernels import taps as tapsmod
 from ..kernels.chunks import chunk_poly
-from ..kernels.fir import Fir
+from ..kernels.fir import Fir, correlate_valid_bank
+from ..kernels.fused_channelizer import FusedChannelizerStage
 from ..kernels.resample import RationalResampler
 
 _TWO_PI = 2.0 * np.pi
 _FINE = 1024
 
 _NOT_PORTED = ("is not ported yet (ROADMAP.md M11: channelizer alternates); "
-               "sdrtpu_torch runs the dense fft channelizer only")
+               "sdrtpu_torch runs the fft, xla-fused, xla and pallas "
+               "channelizers")
 
 
 class MultiVfoMixer(StreamOp):
@@ -130,6 +137,112 @@ class MultiVfoMixer(StreamOp):
         out = (y.reshape(C, K, self.block_len) * rot).reshape(C, n)
         new_phase = torch.remainder(ph[:, K - 1] + delta, _TWO_PI)
         return {**state, "phase": new_phase}, out
+
+
+class ModulatedDecimatorChain(StreamOp):
+    """Fused mix + multistage decimation with modulated taps.
+
+    With mixer phase ``w'_c = -2*pi*f_c/fs``, stage k's taps become
+    ``h_k[t] e^{j w'_c R_k t}`` (R_k = decimation before it) applied to
+    the stage input, and the leftover rotation is one `MultiVfoMixer` at
+    the final rate, started at the group-delay phase
+    ``-sum_k w'_c R_k (T_k - 1)``.  Stage 1 reads the shared wideband
+    input, so its tail is C-independent; later tails are per channel.
+    The modulated taps live in the state, so a retune is a table swap.
+    """
+
+    def __init__(self, offsets_hz, samplerate, stages, block_len,
+                 device="cuda"):
+        """``stages``: list of (taps, decimation) pairs, input rate order."""
+        self.device = resolve_device(device)
+        offsets = np.asarray(offsets_hz, np.float64)
+        self.n_channels = len(offsets)
+        omega_p = -_TWO_PI * offsets / float(samplerate)
+        self.stage_plan: list[tuple[np.ndarray, int, int]] = []
+        self._live: list[list[int]] = []
+        phase0 = np.zeros(self.n_channels, np.float64)
+        rate_mult = 1
+        n = int(block_len)
+        for taps, M in stages:
+            taps = np.asarray(taps, np.float64)
+            T, M = int(taps.shape[0]), int(M)
+            t_idx = np.arange(T, dtype=np.float64)
+            mod = taps[None, :] * np.exp(
+                1j * np.mod(omega_p[:, None] * rate_mult * t_idx, _TWO_PI))
+            self.stage_plan.append((mod.astype(np.complex64), M, T))
+            # |h e^{jwt}| = |h|: the zero columns do not move on a retune
+            self._live.append([t for t in range(T) if taps[t] != 0.0])
+            phase0 -= omega_p * rate_mult * (T - 1)
+            rate_mult *= M
+            assert n % M == 0, (n, M)
+            n //= M
+        self.ratio = rate_mult
+        self.block_len = int(block_len)
+        self.rot = MultiVfoMixer(-offsets, samplerate / rate_mult, n,
+                                 device=self.device)
+        self._phase0 = np.mod(phase0, _TWO_PI).astype(np.float32)
+
+    def init_state(self):
+        def dev(a):
+            return torch.as_tensor(a, device=self.device)
+
+        rot = self.rot.init_state()
+        rot["phase"] = dev(self._phase0.copy())
+        tails = [torch.zeros(self.stage_plan[0][2] - 1, dtype=torch.complex64,
+                             device=self.device)]
+        for _, _, T in self.stage_plan[1:]:
+            tails.append(torch.zeros((self.n_channels, T - 1),
+                                     dtype=torch.complex64,
+                                     device=self.device))
+        return {"tails": tuple(tails),
+                "taps": tuple(dev(mod) for mod, _, _ in self.stage_plan),
+                "rot": rot}
+
+    def retune_state(self, state, offsets_hz, samplerate: float,
+                     stages) -> dict:
+        """Swap the modulated taps and rotator tables; keep the tails.
+        Each channel's accumulated rotator phase is carried in float32
+        (minus the old group-delay constant, plus the new)."""
+        fresh = ModulatedDecimatorChain(offsets_hz, samplerate, stages,
+                                        self.block_len, device=self.device)
+        assert fresh.ratio == self.ratio and len(fresh.stage_plan) == len(
+            self.stage_plan), "retune changed the stage plan; rebuild instead"
+        new = fresh.init_state()
+        new["tails"] = state["tails"]
+        phase = state["rot"]["phase"].to(torch.float32)
+        new["rot"]["phase"] = torch.remainder(
+            phase - torch.as_tensor(self._phase0, device=phase.device)
+            + torch.as_tensor(fresh._phase0, device=phase.device),
+            _TWO_PI)
+        self.stage_plan = fresh.stage_plan
+        self._live = fresh._live
+        self._phase0 = fresh._phase0
+        self.rot = fresh.rot
+        return new
+
+    def out_len(self, n: int) -> int:
+        return n // self.ratio
+
+    def __call__(self, state, x):
+        y = x.to(torch.complex64)
+        new_tails = []
+        for (_, M, _), tail, taps_mod, live in zip(
+                self.stage_plan, state["tails"], state["taps"], self._live):
+            n = y.shape[-1]
+            ext = torch.cat([tail, y], dim=-1)
+            new_tails.append(ext[..., n:])
+            y = correlate_valid_bank(ext, taps_mod, stride=M, live=live)
+        st_rot, y = self.rot(state["rot"], y)
+        return {"tails": tuple(new_tails), "taps": state["taps"],
+                "rot": st_rot}, y
+
+
+def ModulatedDecimatorStage(offsets_hz, samplerate, taps, decimation,
+                            block_len, device="cuda"):
+    """Single-stage `ModulatedDecimatorChain`."""
+    return ModulatedDecimatorChain(offsets_hz, samplerate,
+                                   [(taps, decimation)], block_len,
+                                   device=device)
 
 
 def _cascade_equivalent_taps(stages) -> np.ndarray:
@@ -314,10 +427,30 @@ class FftDecimatorChain(StreamOp):
         return {"tail": new_tail, "rot": st_rot, "hf": state["hf"]}, y
 
 
+def _pallas_eligible(resampler: RationalResampler) -> bool:
+    """Stage 1 fits K2: decimation 2, 4 or 8 and at most M + 32 taps."""
+    if resampler.predecim is None or not resampler.predecim.stages:
+        return False
+    s0 = resampler.predecim.stages[0]
+    return s0.decimation in (2, 4, 8) and s0.ntaps <= s0.decimation + 32
+
+
 class Channelizer(StreamOp):
-    """N simultaneous VFOs at one output rate: the fft front end
-    (`FftDecimatorChain`), the resampler's fractional tail if any, and an
-    optional channel lowpass.  ``method``: "auto" or "fft"."""
+    """N simultaneous VFOs at one output rate: a front end, the
+    resampler's fractional tail if any, and an optional channel lowpass.
+
+    ``method`` (as the reference):
+
+    - "fft": `FftDecimatorChain` (any multiple of ``block_len`` per call);
+    - "xla-fused": `ModulatedDecimatorChain` over every predecimation stage;
+    - "pallas": stage 1 in `FusedChannelizerStage` (kernel K2), then the
+      remaining predecimation stages (per-channel tails in ``"rest"``);
+    - "xla": `MultiVfoMixer` then the whole `RationalResampler`;
+    - "auto": "fft" when a chunk plan exists, else "xla-fused"; "xla"
+      without integer predecimation.
+
+    Every method but "fft" takes exactly one block per call.
+    """
 
     def __init__(self, offsets_hz, in_samplerate: float,
                  out_samplerate: float, block_len: int,
@@ -334,20 +467,36 @@ class Channelizer(StreamOp):
             f"{self.resampler.block_multiple()}")
         self.n_channels = len(self.offsets)
         self.block_len = int(block_len)
-        if method not in ("auto", "fft"):
-            raise NotImplementedError(f"Channelizer method {method!r} "
-                                      + _NOT_PORTED)
+        if method == "pfb":
+            raise NotImplementedError("Channelizer method 'pfb' " + _NOT_PORTED)
+        if method == "pallas-interpret":
+            raise ValueError(
+                "'pallas-interpret' runs the TPU kernel in interpret mode; "
+                "pass method='pallas' with device='cpu' for the plain "
+                "PyTorch version")
+        if method not in ("auto", "fft", "xla-fused", "xla", "pallas"):
+            raise ValueError(f"unknown channelizer method {method!r}")
         pre = self.resampler.predecim
-        if pre is None or not pre.stages:
-            raise NotImplementedError(
-                "a channelizer without integer predecimation (the 'xla' "
-                "mixer + resampler path) " + _NOT_PORTED)
-        stages = self._stages()
-        # the reference's "auto" falls back to time-domain paths when no
-        # chunk plan exists; those are not ported, so the plan must exist
-        _plan_fft_chunks(self.block_len, pre.ratio,
-                         len(_cascade_equivalent_taps(stages)))
-        self.method = "fft"
+        has_predecim = pre is not None and len(pre.stages) > 0
+        if method == "auto":
+            if has_predecim:
+                try:
+                    _plan_fft_chunks(self.block_len, pre.ratio, len(
+                        _cascade_equivalent_taps(self._stages())))
+                    method = "fft"
+                except ValueError:
+                    method = "xla-fused"
+            else:
+                method = "xla"
+        if method == "pallas" and not _pallas_eligible(self.resampler):
+            raise ValueError("resampler plan not eligible for the fused kernel")
+        if method in ("xla-fused", "fft") and not has_predecim:
+            method = "xla"
+        self.method = method
+        if self.skip_rotator and method != "fft":
+            raise ValueError(
+                "skip_rotator is only supported on the fft channelizer "
+                f"(resolved method: {method})")
         # Stricter than the reference: the residual carrier that
         # skip_rotator leaves in the IF would push the channel out of a
         # baseband-centered lowpass or fractional resampler downstream,
@@ -357,10 +506,27 @@ class Channelizer(StreamOp):
             raise ValueError(
                 "skip_rotator needs an integer in->IF ratio and no "
                 "low_pass_bw (the IF is left un-derotated)")
-        self.fused = FftDecimatorChain(
-            self.offsets, in_samplerate, stages, block_len,
-            skip_rotator=self.skip_rotator,
-            sparse_thresh_db=sparse_thresh_db, device=self.device)
+        if sparse_thresh_db is not None and method == "fft":
+            raise NotImplementedError("the sparse alias fold " + _NOT_PORTED)
+        self.rest_stages = []
+        self.fused = self.mixer = None
+        if method == "fft":
+            self.fused = FftDecimatorChain(
+                self.offsets, in_samplerate, self._stages(), block_len,
+                skip_rotator=self.skip_rotator, device=self.device)
+        elif method == "xla-fused":
+            self.fused = ModulatedDecimatorChain(
+                self.offsets, in_samplerate, self._stages(), block_len,
+                device=self.device)
+        elif method == "pallas":
+            s0 = pre.stages[0]
+            self.fused = FusedChannelizerStage(
+                self.offsets, in_samplerate, np.asarray(s0.taps),
+                s0.decimation, block_len, device=self.device)
+            self.rest_stages = pre.stages[1:]
+        else:
+            self.mixer = MultiVfoMixer(-self.offsets, in_samplerate,
+                                       block_len, device=self.device)
         if low_pass_bw is not None:
             self.lpf = Fir(
                 tapsmod.low_pass(low_pass_bw / 2.0, low_pass_bw * 0.05,
@@ -374,34 +540,58 @@ class Channelizer(StreamOp):
                 for s in self.resampler.predecim.stages]
 
     def init_state(self):
-        return {
-            "lpf": self.lpf.init_state() if self.lpf else (),
-            "fused": self.fused.init_state(),
-            "rest": (),
-            "poly": (self.resampler.resamp.init_state()
-                     if self.resampler.resamp else ()),
-        }
+        st = {"lpf": self.lpf.init_state() if self.lpf else ()}
+        if self.fused is None:
+            st["mixer"] = self.mixer.init_state()
+            st["resamp"] = self.resampler.init_state()
+            return st
+        st["fused"] = self.fused.init_state()
+        st["rest"] = tuple(
+            torch.zeros((self.n_channels, s.ntaps - 1),
+                        dtype=torch.complex64, device=self.device)
+            for s in self.rest_stages)
+        st["poly"] = (self.resampler.resamp.init_state()
+                      if self.resampler.resamp else ())
+        return st
 
     def out_len(self, n: int) -> int:
         return self.resampler.out_len(n)
 
     def retune_state(self, state, offsets_hz) -> dict:
-        """Move all VFO offsets: the front end swaps its tables and keeps
-        every carried tail."""
+        """Move all VFO offsets by a table swap (fft, xla-fused: the
+        chain's ``retune_state``; xla: the mixer's), keeping every
+        carried tail.  The pallas stage keeps its tables out of the
+        state and is rebuilt instead, as in the reference."""
         offsets = np.asarray(offsets_hz, np.float64)
         assert offsets.shape == self.offsets.shape
         st = dict(state)
-        st["fused"] = self.fused.retune_state(
-            state["fused"], offsets, self.resampler.in_samplerate,
-            self._stages())
+        if self.method in ("fft", "xla-fused"):
+            st["fused"] = self.fused.retune_state(
+                state["fused"], offsets, self.resampler.in_samplerate,
+                self._stages())
+        elif self.method == "xla":
+            st["mixer"] = self.mixer.retune_state(state["mixer"], -offsets)
+        else:
+            raise NotImplementedError(
+                f"state-swap retune not supported for the opt-in "
+                f"{self.method} channelizer; rebuild instead")
         self.offsets = offsets
         return st
 
     def __call__(self, state, x):
         st = dict(state)
-        st["fused"], y = self.fused(state["fused"], x)  # (C, n/M)
-        if self.resampler.resamp is not None:
-            st["poly"], y = self.resampler.resamp(state["poly"], y)
+        if self.fused is None:
+            st["mixer"], y = self.mixer(state["mixer"], x)  # (C, n)
+            st["resamp"], y = self.resampler(state["resamp"], y)
+        else:
+            st["fused"], y = self.fused(state["fused"], x)  # (C, n/M1)
+            new_rest = []
+            for s, rst in zip(self.rest_stages, state["rest"]):
+                rst, y = s(rst, y)
+                new_rest.append(rst)
+            st["rest"] = tuple(new_rest)
+            if self.resampler.resamp is not None:
+                st["poly"], y = self.resampler.resamp(state["poly"], y)
         if self.lpf:
             st["lpf"], y = self.lpf(state["lpf"], y)
         return st, y

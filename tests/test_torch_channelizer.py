@@ -181,8 +181,7 @@ def test_skip_rotator_guard_is_stricter_than_the_reference():
 
 
 @pytest.mark.parametrize("kw", [
-    {"method": "xla-fused"}, {"method": "pfb"}, {"method": "pallas"},
-    {"method": "xla"}, {"sparse_thresh_db": -100.0},
+    {"method": "pfb"}, {"sparse_thresh_db": -100.0},
 ])
 def test_unported_paths_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
