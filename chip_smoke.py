@@ -13,8 +13,11 @@ Phases, each fatal:
    one process per source, started together);
 3. kernel check: each kernel against its plain PyTorch version on the
    card at the shapes the main paths and the tests use (chunk_poly is
-   data movement, so exact; mix_decimate within 1e-5 of the plain
-   version's peak), with its time beside its bound;
+   data movement, so exact; mix_decimate within 1e-5 of the peak of both
+   of its plain versions, the reference's per-sample rotation and the
+   kernel's own output rotation, also over a 2.5 M-sample block at the
+   band edges and with a ragged channel group), with its time beside
+   its bound, its grid on this card and its registers;
 4. fft flagship: the 8-VFO WBFM pipeline off a 10 Msps capture,
    500k-sample blocks, 65536-bin waterfall at 20 Hz, ``skip_rotator``,
    through ``scan_repeat`` over 256 blocks;
@@ -35,6 +38,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -97,14 +101,22 @@ def profiled(fn):
 
 
 def device_ms(fn, reps: int) -> float:
-    """Kernel time on the card per call of ``fn()`` (all its kernels)."""
+    """Kernel time on the card per call of ``fn()`` (all its kernels).
+    A trace that comes back without a device event is taken again, and
+    each retake is logged."""
     fn()
 
     def run():
         for _ in range(reps):
             fn()
 
-    return profiled(run)[2] / reps / 1e3
+    for take in range(3):
+        prof, _, busy_us = profiled(run)
+        if busy_us > 0:
+            return busy_us / reps / 1e3
+        log(f"device_ms: take {take + 1} of 3 has no device event among "
+            f"{len(prof.events())} events; taken again")
+    raise AssertionError("the profiler saw no kernel on the card")
 
 
 def phase_device() -> dict:
@@ -120,7 +132,7 @@ def phase_device() -> dict:
             "count": torch.cuda.device_count()}
 
 
-def phase_build() -> None:
+def phase_build() -> dict:
     from sdrtpu_torch import _build
 
     t0 = time.perf_counter()
@@ -128,6 +140,25 @@ def phase_build() -> None:
     log(f"build: {time.perf_counter() - t0:.2f} s")
     for name, r in report.items():
         log(f"  {name}: {r['seconds']:.2f} s cached={r['cached']}\n{r['log']}")
+    return report
+
+
+def ptxas_usage(build_log: str, *instance: str) -> dict:
+    """Registers, static shared bytes and spill bytes that ptxas reports
+    for the kernel whose mangled name contains every part of
+    ``instance``."""
+    for block in build_log.split("Compiling entry function")[1:]:
+        if not all(part in block.split("'")[1] for part in instance):
+            continue
+        regs = re.search(r"Used (\d+) registers", block)
+        smem = re.search(r"(\d+) bytes smem", block)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          block)
+        return {"registers": int(regs.group(1)),
+                "static_shared_bytes": int(smem.group(1)) if smem else 0,
+                "spill_bytes": (int(spill.group(1)) + int(spill.group(2))
+                                if spill else 0)}
+    raise AssertionError(f"no ptxas report for {instance}")
 
 
 def phase_kernels(flagship_plan) -> list[dict]:
@@ -203,12 +234,16 @@ def phase_kernels(flagship_plan) -> list[dict]:
     }]
 
 
-def phase_mix_decimate() -> dict:
-    """mix_decimate against mix_decimate_ref at every checked shape,
-    within K2_REL_TOL of the plain version's peak, each timed beside its
-    plain version and the two-call library copy (one elementwise mix,
-    then one strided ``F.conv1d``).  The JSON entry's own numbers are at
-    the flagship block (what the pallas path launches)."""
+def phase_mix_decimate(build: dict) -> dict:
+    """mix_decimate against `mix_decimate_ref` and against
+    `mix_decimate_modulated_ref` at every checked shape, within
+    K2_REL_TOL of the plain version's peak, each timed beside its plain
+    version and the two-call library copy (one elementwise mix, then one
+    strided ``F.conv1d``).  The JSON entry's own numbers are at the
+    flagship block (what the pallas path launches); the bound is the
+    function's work (its arguments and output moved once; 12 flops per
+    sample and channel of mixing plus 4T per output), whatever
+    implements it."""
     import torch.nn.functional as F
 
     from sdrtpu_torch.kernels import fused_channelizer as fc
@@ -224,19 +259,22 @@ def phase_mix_decimate() -> dict:
         (2, 10e6, fc.TILE_IN + 40000, 8, 36),
         flagship,                  # 8-VFO flagship block, its own taps
         (64, 50e6, 2_500_000),     # 64-VFO plan block, its own taps
+        (9, 10e6, 100_000, 8, 36),  # a ragged channel group: 8 + 1
+        (2, 10e6, 2_500_000, 8, 36, 0.45),  # long block at the band edges
     ]
     worst = 0.0
     rows = {}
     for shape in shapes:
         C, fs, n = shape[:3]
-        if len(shape) == 5:
-            M, T = shape[3:]
+        if len(shape) >= 5:
+            M, T = shape[3:5]
             h = rng.standard_normal(T).astype(np.float32)
             h /= np.abs(h).sum()
         else:
             h, M = np.asarray(stage1[fs].taps), stage1[fs].decimation
+        edge = shape[5] if len(shape) == 6 else 0.4
         stage = fc.FusedChannelizerStage(
-            np.linspace(-0.4 * fs, 0.4 * fs, C), fs, h, M, n, device="cuda")
+            np.linspace(-edge * fs, edge * fs, C), fs, h, M, n, device="cuda")
         T = stage.T
         tail = torch.randn(T - 1, dtype=torch.complex64, device="cuda",
                            generator=gen)
@@ -245,13 +283,17 @@ def phase_mix_decimate() -> dict:
         args = (tail, x, stage._coarse, stage._fine, stage._taps, phase, M)
         got = fc.mix_decimate(*args)
         want = fc.mix_decimate_ref(*args)
+        modulated = fc.mix_decimate_modulated_ref(*args)
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
+        mod_err = (got - modulated).abs().max().item()
+        del modulated
         scale = want.abs().max().item()
-        if not err <= K2_REL_TOL * scale:
-            raise AssertionError(f"mix_decimate disagrees at {(C, n, M, T)}: "
-                                 f"max_abs_err {err}, peak {scale}")
-        worst = max(worst, err / scale)
+        if not max(err, mod_err) <= K2_REL_TOL * scale:
+            raise AssertionError(
+                f"mix_decimate disagrees at {(C, n, M, T)}: max_abs_err {err} "
+                f"(plain), {mod_err} (modulated form), peak {scale}")
+        worst = max(worst, err / scale, mod_err / scale)
 
         # the library copy: rotation table materialised beforehand
         ext = torch.cat([tail, x])
@@ -271,23 +313,37 @@ def phase_mix_decimate() -> dict:
             got.numel() * got.element_size())
         flops = C * (n + T - 1) * 12 + C * (n // M) * 4 * T
         t = {"shape": [C, n, M, T], "max_abs_err": err, "peak": scale,
+             "modulated_max_abs_err": mod_err,
              "library_max_abs_err": lib_err,
              "bytes": nbytes, "flops": flops,
              "bound_ms": max(nbytes / H100_BYTES_PER_S,
                              flops / H100_FP32_FLOPS) * 1e3,
              "bound_by": ("bytes" if nbytes / H100_BYTES_PER_S
-                          >= flops / H100_FP32_FLOPS else "operations")}
+                          >= flops / H100_FP32_FLOPS else "operations"),
+             **fc.launch_plan(n, C, M, T)}  # the grid on this card
         fns = {"": lambda: fc.mix_decimate(*args),
                "plain_": lambda: fc.mix_decimate_ref(*args),
                "library_": library}
         for key, fn in fns.items():
             t[key + "ms"] = device_ms(fn, 20)
             t[key + "event_ms"] = cuda_ms(fn, 20)
+        if shape == flagship:
+            # the wrapper's host time per call: checks, output allocation
+            # and launch, nothing waited for inside the loop
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(256):
+                fc.mix_decimate(*args)
+            t["host_us"] = (time.perf_counter() - t0) / 256 * 1e6
+            torch.cuda.synchronize()
         rows[shape] = t
         log(f"mix_decimate {(C, n, M, T)}: {t}")
         del ext, e, c_rot, w, args, got, want
         torch.cuda.empty_cache()
     main = rows[flagship]
+    usage = ptxas_usage(
+        build["log"], f"mix_decimate_kernelILi{main['shape'][2]}E",
+        f"ShapeILi{main['threads']}ELi{main['outputs_per_lane']}E")
     return {
         "name": "mix_decimate",
         "route": "cuda",
@@ -308,6 +364,26 @@ def phase_mix_decimate() -> dict:
         "event_ms": main["event_ms"],
         "plain_event_ms": main["plain_event_ms"],
         "library_event_ms": main["library_event_ms"],
+        "host_us": main["host_us"],
+        # Facts of the build, not of this run's timing: ptxas' report for
+        # the M and tile shape of the flagship, from the log kept beside
+        # the library this run loaded (``cached``: built by an earlier
+        # run from the same source and flags); the windows are dynamic
+        # shared memory, which only the launcher knows.
+        "build": {"cached": build["cached"],
+                  "seconds": build["seconds"],
+                  "registers": usage["registers"],
+                  "spill_bytes": usage["spill_bytes"],
+                  "shared_bytes": (usage["static_shared_bytes"]
+                                   + main["dynamic_shared_bytes"])},
+        "threads": main["threads"],
+        "outputs_per_lane": main["outputs_per_lane"],
+        "tiles_per_warp": main["tiles_per_warp"],
+        "ctas": main["ctas"],
+        "ctas_per_sm": main["ctas_per_sm"],
+        "resident_ctas_per_sm": main["resident_ctas_per_sm"],
+        "waves": main["waves"],
+        "sms": main["sms"],
         "shape": main["shape"],
         "other_shapes": [v for k, v in rows.items() if k != flagship],
     }
@@ -484,13 +560,13 @@ def phase_path(card: str, method: str, K: int = 256,
 
 def main(argv) -> int:
     dev = phase_device()
-    phase_build()
+    built = phase_build()
     plan_pipe, _ = build_flagship("cpu")
     fused = plan_pipe.channelizer.fused
     # the fft path launches chunk_poly once per sub-window of blocks
     kernels = phase_kernels((fused.valid, fused.ratio, fused.nif,
                              fused.n_chunks * plan_pipe._subk(256)))
-    kernels.append(phase_mix_decimate())
+    kernels.append(phase_mix_decimate(built["mix_decimate"]))
     profile_path = (argv[argv.index("--profile") + 1]
                     if "--profile" in argv else None)
     paths = {}

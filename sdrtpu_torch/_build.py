@@ -7,10 +7,11 @@ C interface, loaded with ctypes:
          -Xcompiler -fPIC -o build/sdrtpu_torch/lib<name>-<hash>.so <name>.cu
 
 Libraries go to ``build/sdrtpu_torch/`` beside the package and are named
-by a hash of their source, so an edited source is rebuilt and a stale
-library is never loaded.  Nothing builds at import: the first launch of
-a kernel builds it, and `build_all` builds every source at once (one
-nvcc process each, started together).
+by a hash of their source and flags, so an edited source is rebuilt and
+a stale library is never loaded; nvcc's output (ptxas' register and
+shared-memory report) is kept beside each as ``.log``.  Nothing builds
+at import: the first launch of a kernel builds it, and `build_all`
+builds every source at once (one nvcc process each, started together).
 """
 
 from __future__ import annotations
@@ -53,7 +54,8 @@ def build_all(names=SOURCES) -> dict[str, dict]:
     """Compile every missing library in parallel.
 
     Returns ``{name: {"seconds": float, "log": str, "cached": bool}}``
-    (the log holds ptxas' register and shared-memory report).  Raises
+    (the log holds ptxas' register and shared-memory report; for a
+    cached library it is the log of the build that made it).  Raises
     with nvcc's output if any build fails.
     """
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -63,7 +65,9 @@ def build_all(names=SOURCES) -> dict[str, dict]:
     for name in names:
         out = lib_path(name)
         if out.exists():
-            report[name] = {"seconds": 0.0, "log": "", "cached": True}
+            log = out.with_suffix(".log")
+            report[name] = {"seconds": 0.0, "cached": True,
+                            "log": log.read_text() if log.exists() else ""}
             continue
         nvcc = nvcc or _nvcc()
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
@@ -78,6 +82,7 @@ def build_all(names=SOURCES) -> dict[str, dict]:
         if proc.returncode != 0:
             failed.append(f"{name}:\n{log}")
             continue
+        out.with_suffix(".log").write_text(log)
         os.replace(tmp, out)
         report[name] = {"seconds": secs, "log": log, "cached": False}
     if failed:

@@ -9,13 +9,25 @@ where ``rot_c(e) = coarse_c[e // 1024] * fine_c[e % 1024]`` and the
 coarse row is rotated by the carried per-channel phase.  The tables are
 built on the host in float64 and stored float32, exactly as the
 reference, so the rotation never takes a float32 angle of a large
-sample index.
+sample index.  They are the tables of a rotation, ``coarse_c[g] =
+e^{i w_c (1024 g - halo)}`` and ``fine_c[r] = e^{i w_c r}``.
 
-On a CUDA tensor `mix_decimate` launches ``csrc/mix_decimate.cu`` (a
-direct polyphase FIR per CTA, see the source's note); on a CPU tensor it
-runs `mix_decimate_ref`, which keeps the reference's own arithmetic: the
-planar rotation, then the banded-Toeplitz float32 matmuls ``W1``/``W2``
-of `_toeplitz_mats`.  There is no fallback between the two.
+On a CUDA tensor `mix_decimate` launches ``csrc/mix_decimate.cu``.  The
+kernel is bound by instruction throughput, not bytes, so it moves the
+rotation from the input samples to the outputs: ``rot_c(jM + t) =
+rot_c(jM) * fine_c[t]``, hence ``y_c[j] = rot_c(jM) * sum_t ext[jM + t]
+* g_c[t]`` with the modulated taps ``g_c[t] = h[t] * fine_c[t]``.  One
+raw ext window per tile, copied asynchronously into shared memory,
+serves 8 channels; each lane keeps 8 channels x 2 or 4 outputs of
+complex accumulators in registers; the warps of persistent CTAs sized
+to the card's SMs walk the tiles (see the source's note).
+`mix_decimate_modulated_ref` states that arithmetic in float32 PyTorch,
+for the tests.
+
+On a CPU tensor `mix_decimate` runs `mix_decimate_ref`, which keeps the
+reference's own arithmetic: the planar rotation of every sample, then
+the banded-Toeplitz float32 matmuls ``W1``/``W2`` of `_toeplitz_mats`.
+There is no fallback between the two.
 """
 
 from __future__ import annotations
@@ -87,15 +99,74 @@ def mix_decimate_ref(tail, x, coarse, fine, taps, phase,
     return torch.complex(y_re, y_im).reshape(C, -1)[:, :n_out]
 
 
+def mix_decimate_modulated_ref(tail, x, coarse, fine, taps, phase,
+                               decim: int) -> torch.Tensor:
+    """The CUDA kernel's arithmetic in plain float32 PyTorch.
+
+    Modulated taps ``g_c[t] = h[t] * fine_c[t]``, one complex FIR of the
+    raw ``ext = tail ++ x`` per channel, then one rotation per output
+    from the tables at ext index ``jM``.  Equal to `mix_decimate_ref` up
+    to float32 rounding when the tables are those of a rotation
+    (``fine_c[r] = e^{i w_c r}``), as `FusedChannelizerStage` builds
+    them.  Used by the tests and the on-card check only.
+    """
+    M = int(decim)
+    T = int(taps.shape[0])
+    n_out = int(x.shape[-1]) // M
+    ext = torch.cat([tail, x])
+    g = taps[None, :] * fine[:, :T]                      # (C, T)
+    frames = ext.unfold(0, T, M)[:n_out]                 # (n_out, T)
+    # planar float32 products, as the kernel's four FFMA per tap
+    fr, fi = frames.real, frames.imag
+    gr, gi = g.real.T.contiguous(), g.imag.T.contiguous()
+    z_re = fr @ gr - fi @ gi                             # (n_out, C)
+    z_im = fr @ gi + fi @ gr
+    # the coarse rows rotated by the carried phase, as the reference does
+    pr, pi = torch.cos(phase)[:, None], torch.sin(phase)[:, None]
+    e = torch.arange(n_out, device=x.device) * M
+    row, lane = e >> 10, e & (ROW - 1)
+    cr, ci = coarse.real[:, row], coarse.imag[:, row]
+    ctr, cti = cr * pr - ci * pi, cr * pi + ci * pr
+    fr, fi = fine.real[:, lane], fine.imag[:, lane]
+    rot_re = ctr * fr - cti * fi                         # (C, n_out)
+    rot_im = ctr * fi + cti * fr
+    return torch.complex(rot_re * z_re.T - rot_im * z_im.T,
+                         rot_re * z_im.T + rot_im * z_re.T)
+
+
 @functools.cache
-def _launcher():
-    """The C entry point, built on first use: (tail, x, coarse, fine,
-    taps, phase, out, n, halo, rows, C, M, T, stream) -> cudaError_t."""
-    fn = _build.load("mix_decimate").mix_decimate_launch
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_longlong] + [
-        ctypes.c_int] * 5 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+def _library():
+    """The kernel's library, built on first use, with the C types of its
+    two entry points: ``mix_decimate_launch(tail, x, coarse, fine, taps,
+    phase, out, n, halo, rows, C, M, T, stream)`` and
+    ``mix_decimate_plan(n, C, M, T, report[9])``, both -> cudaError_t."""
+    lib = _build.load("mix_decimate")
+    lib.mix_decimate_launch.argtypes = [ctypes.c_void_p] * 7 + [
+        ctypes.c_longlong] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    lib.mix_decimate_launch.restype = ctypes.c_int
+    lib.mix_decimate_plan.argtypes = [ctypes.c_longlong] + [
+        ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    lib.mix_decimate_plan.restype = ctypes.c_int
+    return lib
+
+
+def launch_plan(n: int, C: int, decim: int, T: int) -> dict:
+    """The grid `mix_decimate` takes for this plan on the current card:
+    CTAs, the card's SMs, how many CTAs fit on one SM, CTAs per SM as
+    launched, waves (CTAs over the CTAs the card holds at once), channel
+    groups, output ranges (one CTA each), tiles per warp, dynamic shared
+    bytes, threads per CTA and outputs per lane."""
+    report = (ctypes.c_int * 9)()
+    rc = _library().mix_decimate_plan(n, C, int(decim), T, report)
+    if rc != 0:
+        raise RuntimeError(f"mix_decimate: no plan (error {rc})")
+    keys = ("ctas", "sms", "resident_ctas_per_sm", "channel_groups",
+            "ranges", "tiles_per_warp", "dynamic_shared_bytes", "threads",
+            "outputs_per_lane")
+    plan = dict(zip(keys, report))
+    plan["ctas_per_sm"] = plan["ctas"] / plan["sms"]
+    plan["waves"] = plan["ctas"] / (plan["sms"] * plan["resident_ctas_per_sm"])
+    return plan
 
 
 def mix_decimate(tail, x, coarse, fine, taps, phase, decim: int):
@@ -103,10 +174,11 @@ def mix_decimate(tail, x, coarse, fine, taps, phase, decim: int):
 
     ``coarse`` (C, rows) and ``fine`` (C, 1024) complex64 rotation
     tables (``rows > ceil(n / 1024)``), ``taps`` (T,) float32 with
-    ``T <= 40``, ``phase`` (C,) float32, M in {2, 4, 8}.  CPU tensors:
-    `mix_decimate_ref`.  CUDA tensors: the hand-written kernel on the
-    current stream (``mix_decimate.launches`` counts its launches);
-    anything else raises.
+    ``T <= 40``, ``phase`` (C,) float32, M in {2, 4, 8}.  The tables are
+    those of a rotation, as `FusedChannelizerStage` builds them.  CPU
+    tensors: `mix_decimate_ref`.  CUDA tensors: the hand-written kernel
+    on the current stream (``mix_decimate.launches`` counts its
+    launches); anything else raises.
     """
     M = int(decim)
     args = {"tail": tail, "x": x, "coarse": coarse, "fine": fine,
@@ -135,7 +207,7 @@ def mix_decimate(tail, x, coarse, fine, taps, phase, decim: int):
     if not all(t.is_contiguous() for t in args.values()):
         raise ValueError("mix_decimate: every input must be contiguous")
     out = torch.empty((C, n // M), dtype=torch.complex64, device=x.device)
-    fn = _launcher()
+    fn = _library().mix_decimate_launch
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = fn(tail.data_ptr(), x.data_ptr(), coarse.data_ptr(),
