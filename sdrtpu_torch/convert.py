@@ -9,8 +9,14 @@ state.
 
 ``state_from_jax`` takes the reference's state as numpy leaves (its
 ``init_state()``, or ``np.asarray`` of a carried state; any array with
-``__array__`` works) and returns torch tensors on ``device``.
-``state_to_numpy`` goes back.  Neither imports JAX.
+``__array__`` works) and returns torch tensors on ``device``.  Scalar
+leaves (a mixer phase, an AGC average, the CTCSS detector's booleans and
+int32 tone) become 0-d tensors of the same dtype.  The reference's
+receiver keeps complex leaves as planar ``(re, im)`` pairs across its
+compiled step (a named tuple with those two fields); such a pair is
+joined into one complex leaf.  ``state_to_numpy`` goes back, to complex
+numpy leaves, which the reference splits again with its own ``realify``.
+Neither imports JAX.
 """
 
 from __future__ import annotations
@@ -22,12 +28,29 @@ from . import resolve_device
 from .graph.block import tree_map
 
 
+def _is_planar_pair(node) -> bool:
+    return (isinstance(node, tuple)
+            and getattr(node, "_fields", None) == ("re", "im"))
+
+
+def _join_planar(tree):
+    """Replace every planar ``(re, im)`` pair by one complex numpy leaf."""
+    if _is_planar_pair(tree):
+        re, im = np.asarray(tree.re), np.asarray(tree.im)
+        return (re + 1j * im).astype(np.result_type(re.dtype, np.complex64))
+    if isinstance(tree, dict):
+        return {k: _join_planar(v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_join_planar(v) for v in tree)
+    return tree
+
+
 def state_from_jax(state, device="cuda"):
     """Nest of array leaves -> the same nest of torch tensors on ``device``."""
     dev = resolve_device(device)
     return tree_map(
         lambda leaf: torch.as_tensor(np.array(leaf, copy=True), device=dev),
-        state)
+        _join_planar(state))
 
 
 def state_to_numpy(state):

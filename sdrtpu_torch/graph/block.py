@@ -20,8 +20,11 @@ Nest = Any
 
 
 def tree_map(fn: Callable, *trees: Nest) -> Nest:
-    """Apply ``fn`` leafwise over nests of dicts, tuples and lists."""
+    """Apply ``fn`` leafwise over nests of dicts, tuples and lists; a
+    ``None`` (an output that is switched off) stays ``None``."""
     t0 = trees[0]
+    if t0 is None:
+        return None
     if isinstance(t0, dict):
         return {k: tree_map(fn, *(t[k] for t in trees)) for k in t0}
     if isinstance(t0, (tuple, list)):

@@ -1,11 +1,14 @@
-"""FM de-emphasis (PyTorch counterpart of ``sdrtpu/kernels/iir.py``).
+"""First-order IIR recurrences (PyTorch counterpart of ``sdrtpu/kernels/iir.py``).
 
-The one-pole lowpass ``y[n] = alpha*x[n] + (1-alpha)*y[n-1]`` has an
-impulse response that underflows float32 within a few dozen samples at
-audio rates, so it runs as a truncated-impulse FIR plus the
-``a^(n+1) * y0`` carry term — fully parallel.  Poles with a longer memory
-need the associative-scan form (`first_order_recurrence` in the
-reference), which is not ported yet (ROADMAP.md M4).
+`first_order_recurrence` solves ``y[n] = a[n]*y[n-1] + b[n]`` across a
+whole block in ``log2(n)`` doubling passes; `DcBlocker` and the long-pole
+branch of `Deemphasis` run on it.
+
+At audio rates the de-emphasis lowpass ``y[n] = alpha*x[n] +
+(1-alpha)*y[n-1]`` has an impulse response that underflows float32 within
+a few dozen samples, so it runs as a truncated-impulse FIR plus the
+``a^(n+1) * y0`` carry term; poles with a longer memory take the
+recurrence.
 """
 
 from __future__ import annotations
@@ -16,6 +19,45 @@ import torch
 from .. import resolve_device
 from ..graph.block import StreamOp
 from .fir import correlate_valid, matmul_correlate_valid, toeplitz_matrix
+
+
+def first_order_recurrence(a, b: torch.Tensor, y0) -> torch.Tensor:
+    """Solve ``y[n] = a[n]*y[n-1] + b[n]`` (``y[-1] = y0``) along the last
+    axis; ``a`` is a Python scalar or a real tensor of ``b``'s shape.
+
+    Each sample is the affine map ``y -> A*y + B``; composing (A1, B1)
+    then (A2, B2) gives (A1*A2, A2*B1 + B2).  Pass ``k`` composes every
+    sample with the map ``2^k`` to its left, so after ``ceil(log2 n)``
+    passes sample ``i`` holds the composition of samples ``0..i``.  All
+    terms stay bounded for ``|a| <= 1`` (no ``a^-k`` factor appears), and
+    each output is a sum of log depth, so float32 does not drift over
+    long blocks.  For a scalar ``a`` the composed ``A`` is a known power,
+    taken in float64 on the host.
+    """
+    n = b.shape[-1]
+    B = b.clone()
+    if isinstance(a, torch.Tensor):
+        A = a.to(B.real.dtype).expand(b.shape).clone()
+        off = 1
+        while off < n:
+            # right-hand sides are evaluated whole before the store, so
+            # the shifted in-place update reads only old values
+            B[..., off:] = B[..., :-off] * A[..., off:] + B[..., off:]
+            A[..., off:] = A[..., :-off] * A[..., off:]
+            off *= 2
+    else:
+        a = float(a)
+        off = 1
+        while off < n:
+            a_off = float(np.float32(a ** off))
+            if a_off == 0.0:
+                break
+            B[..., off:] = B[..., :-off] * a_off + B[..., off:]
+            off *= 2
+        A = torch.as_tensor(
+            (a ** (np.arange(n, dtype=np.float64) + 1.0)).astype(np.float32),
+            device=b.device)
+    return A * y0 + B
 
 
 class Deemphasis(StreamOp):
@@ -38,23 +80,26 @@ class Deemphasis(StreamOp):
         self.mm_min_elements = int(mm_min_elements)
         a = 1.0 - float(self.alpha)
         T = int(np.ceil(np.log(self._FIR_EPS) / np.log(a))) if a > 0 else 1
+        self._a = 1.0 - np.float64(self.alpha)
         if T > self._FIR_MAX_TAPS:
-            raise NotImplementedError(
-                "de-emphasis poles longer than 256 taps need the "
-                "associative-scan recurrence (ROADMAP.md M4)")
+            self._fir = None  # long memory: `first_order_recurrence`
+            return
         k = np.arange(T, dtype=np.float64)
         # correlate_valid orientation: h[t] = alpha * a^(T-1-t)
         self._fir = (float(self.alpha) * a ** (T - 1 - k)).astype(np.float32)
         self._ntaps = T
         self._H = torch.as_tensor(toeplitz_matrix(self._fir, 128),
                                   device=self.device)
-        self._a = 1.0 - np.float64(self.alpha)
 
     def init_state(self):
         shape = () if self.channels == 1 else (self.channels, 1)
         return torch.zeros(shape, dtype=torch.float32, device=self.device)
 
     def __call__(self, state, x):
+        if self._fir is None:
+            a = np.float32(1.0) - self.alpha
+            y = first_order_recurrence(float(a), float(self.alpha) * x, state)
+            return y[..., -1:], y
         T = self._ntaps
         n = x.shape[-1]
         xpad = torch.cat([x.new_zeros(x.shape[:-1] + (T - 1,)), x], dim=-1)
@@ -69,3 +114,24 @@ class Deemphasis(StreamOp):
                      ).astype(np.float32)
         y = y + torch.as_tensor(decay, device=x.device) * state
         return y[..., -1:], y
+
+
+class DcBlocker(StreamOp):
+    """DC tracking subtractor: ``offset[n] = (1-rate)*offset[n-1] +
+    rate*x[n]``, ``out[n] = x[n] - offset[n-1]``.  State: the offset."""
+
+    def __init__(self, rate: float, dtype=torch.complex64, device="cuda"):
+        self.device = resolve_device(device)
+        self.rate = np.float32(rate)
+        self.dtype = dtype
+
+    def init_state(self):
+        return torch.zeros((), dtype=self.dtype, device=self.device)
+
+    def __call__(self, state, x):
+        a = np.float32(1.0) - self.rate
+        offsets = first_order_recurrence(float(a), float(self.rate) * x, state)
+        prev = torch.cat([state.expand(offsets[..., :1].shape),
+                          offsets[..., :-1]], dim=-1)
+        new_state = offsets[..., -1] if offsets.ndim == 1 else offsets[..., -1:]
+        return new_state, x - prev

@@ -1,0 +1,364 @@
+"""Feedback control loops (PyTorch counterpart of ``sdrtpu/kernels/loops.py``).
+
+- `Agc` and `Pll` are per-sample recurrences.  On a CUDA tensor each
+  runs as one launch of a hand-written scan (`agc_scan`, `pll_scan`,
+  ``csrc/seq_loops.cu``); on a CPU tensor the wrapper runs the plain
+  PyTorch loop (`agc_scan_ref`, `pll_scan_ref`), and only then.
+- `Costas` is the plain loop on any device (its users, the PSK and RDS
+  decoders, are not ported yet).
+- `NormalizedPilot` and `pilot_phase_fit` are the block-parallel pilot
+  trackers with no sequential carry.
+
+All loops take ``(..., n)``: leading axes are independent rows, each with
+its own carry (a 0-d carry is shared as the start of every row).  The
+reference runs one row.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import numpy as np
+import torch
+
+from .. import _build, resolve_device
+from ..graph.block import StreamOp
+
+_TWO_PI = float(np.float32(2.0 * np.pi))
+
+
+def critically_damped(bandwidth: float) -> tuple[float, float]:
+    """alpha/beta of a critically damped second-order loop."""
+    zeta = np.sqrt(2.0) / 2.0
+    denom = 1.0 + 2.0 * zeta * bandwidth + bandwidth * bandwidth
+    alpha = (4.0 * zeta * bandwidth) / denom
+    beta = (4.0 * bandwidth * bandwidth) / denom
+    return float(alpha), float(beta)
+
+
+def _wrap_pi(phase: torch.Tensor) -> torch.Tensor:
+    """Wrap to (-pi, pi]; ``torch.round`` rounds half to even, as
+    ``jnp.round`` does."""
+    return phase - _TWO_PI * torch.round(phase / _TWO_PI)
+
+
+def _f32(v: float) -> float:
+    """``v`` rounded to float32, as a Python float."""
+    return float(np.float32(v))
+
+
+def _cuda_args(name: str, x: torch.Tensor, dtype) -> None:
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    if x.dtype != dtype or x.ndim != 2 or not x.is_contiguous():
+        raise ValueError(f"{name}: want contiguous 2-D {dtype}, got "
+                         f"{x.dtype} {tuple(x.shape)}")
+    if not 1 <= x.shape[0] < 2 ** 31 or x.shape[1] < 1:
+        raise ValueError(f"{name}: bad shape {tuple(x.shape)}")
+
+
+# -- AGC ---------------------------------------------------------------
+
+def agc_scan_ref(in_amp, suffix_max, amp0, one_m_atk, atk, one_m_dcy, dcy,
+                 set_point, max_gain, max_out):
+    """Plain PyTorch version of `agc_scan`: the loop over time, all rows
+    at once.  ``in_amp``, ``suffix_max``: (rows, n) float32; ``amp0``:
+    (rows,).  Returns (gain (rows, n), amp (rows,))."""
+    amp = amp0.clone()
+    gains = torch.empty_like(in_amp)
+    one = torch.ones_like(amp)
+    # a tensor numerator: ``scalar / tensor`` would be reciprocal-then-
+    # multiply, which rounds twice
+    set_point = torch.full_like(amp, set_point)
+    for i in range(in_amp.shape[-1]):
+        ia = in_amp[:, i]
+        live = ia != 0.0
+        a = torch.where(ia > amp, amp * one_m_atk + ia * atk,
+                        amp * one_m_dcy + ia * dcy)
+        a = torch.where(live, a, amp)
+        g = torch.where(live, torch.clamp(set_point / a, max=max_gain), one)
+        clip = ia * g > max_out
+        a = torch.where(clip, suffix_max[:, i], a)
+        g = torch.where(clip, torch.clamp(set_point / a, max=max_gain), g)
+        amp = a
+        gains[:, i] = g
+    return gains, amp
+
+
+@functools.cache
+def _agc_launcher():
+    fn = _build.load("seq_loops").agc_scan_launch
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 2
+                   + [ctypes.c_float] * 7 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def agc_scan(in_amp, suffix_max, amp0, one_m_atk, atk, one_m_dcy, dcy,
+             set_point, max_gain, max_out):
+    """Gain per sample and final average of the attack/decay AGC.
+
+    ``in_amp`` = |x| and ``suffix_max[r, i] = max(in_amp[r, i:])``, both
+    (rows, n) float32; ``amp0`` (rows,).  The coefficients are float32
+    values.  CPU tensors: `agc_scan_ref`.  CUDA tensors: the kernel on
+    the current stream (``agc_scan.launches`` counts); no fallback.
+    """
+    if in_amp.device.type == "cpu":
+        return agc_scan_ref(in_amp, suffix_max, amp0, one_m_atk, atk,
+                            one_m_dcy, dcy, set_point, max_gain, max_out)
+    _cuda_args("agc_scan", in_amp, torch.float32)
+    _cuda_args("agc_scan", suffix_max, torch.float32)
+    rows, n = in_amp.shape
+    if suffix_max.shape != in_amp.shape or amp0.shape != (rows,):
+        raise ValueError("agc_scan: shapes disagree")
+    amp0 = amp0.to(torch.float32).contiguous()
+    gains = torch.empty_like(in_amp)
+    amp = torch.empty_like(amp0)
+    fn = _agc_launcher()
+    with torch.cuda.device(in_amp.device):
+        stream = torch.cuda.current_stream(in_amp.device).cuda_stream
+        rc = fn(in_amp.data_ptr(), suffix_max.data_ptr(), gains.data_ptr(),
+                amp0.data_ptr(), amp.data_ptr(), rows, n, one_m_atk, atk,
+                one_m_dcy, dcy, set_point, max_gain, max_out, stream)
+    if rc != 0:
+        raise RuntimeError(f"agc_scan: CUDA launch failed (error {rc})")
+    agc_scan.launches += 1
+    return gains, amp
+
+
+agc_scan.launches = 0
+
+
+class Agc(StreamOp):
+    """Attack/decay AGC.  The clipping look-ahead (scan the rest of the
+    block for its maximum) is a suffix maximum of |x| taken beforehand.
+    State: the running average amplitude ``amp`` (set_point/init_gain,
+    so 0 for ``init_gain=inf``)."""
+
+    def __init__(self, set_point: float, attack: float, decay: float,
+                 max_gain: float = 1e4, max_output_amp: float = 10.0,
+                 init_gain: float = 1.0, device="cuda"):
+        self.device = resolve_device(device)
+        self.set_point = float(set_point)
+        self.attack = float(attack)
+        self.decay = float(decay)
+        self.max_gain = float(max_gain)
+        self.max_output_amp = float(max_output_amp)
+        self.init_gain = float(init_gain)
+
+    def init_state(self):
+        return torch.tensor(self.set_point / self.init_gain,
+                            dtype=torch.float32, device=self.device)
+
+    def __call__(self, state, x):
+        lead = x.shape[:-1]
+        n = x.shape[-1]
+        in_amp = x.abs().to(torch.float32).reshape(-1, n).contiguous()
+        suffix_max = in_amp.flip(-1).cummax(-1).values.flip(-1).contiguous()
+        atk, dcy = np.float32(self.attack), np.float32(self.decay)
+        amp0 = state.to(torch.float32).expand(lead).reshape(-1)
+        gains, amp = agc_scan(
+            in_amp, suffix_max, amp0,
+            float(np.float32(1) - atk), float(atk),
+            float(np.float32(1) - dcy), float(dcy),
+            _f32(self.set_point), _f32(self.max_gain),
+            _f32(self.max_output_amp))
+        return amp.reshape(lead), x * gains.reshape(x.shape)
+
+
+# -- PLL ---------------------------------------------------------------
+
+def pll_scan_ref(x, phase0, freq0, alpha, beta, fmin, fmax):
+    """Plain PyTorch version of `pll_scan`: the loop over time, all rows
+    at once.  ``x``: (rows, n) complex64; carries (rows,) float32."""
+    phase, freq = phase0.clone(), freq0.clone()
+    ang = torch.atan2(x.imag, x.real)
+    phases = torch.empty_like(ang)
+    for i in range(x.shape[-1]):
+        phases[:, i] = phase  # the VCO is emitted before the update
+        err = _wrap_pi(ang[:, i] - phase)
+        freq = torch.clamp(freq + beta * err, fmin, fmax)
+        phase = _wrap_pi(phase + freq + alpha * err)
+    return torch.complex(torch.cos(phases), torch.sin(phases)), phase, freq
+
+
+@functools.cache
+def _pll_launcher():
+    fn = _build.load("seq_loops").pll_scan_launch
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 2
+                   + [ctypes.c_float] * 4 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def pll_scan(x, phase0, freq0, alpha, beta, fmin, fmax):
+    """VCO phasor per sample and final (phase, freq) of the carrier PLL.
+
+    ``x`` (rows, n) complex64; ``phase0``, ``freq0`` (rows,) float32; the
+    coefficients are float32 values.  CPU tensors: `pll_scan_ref`.  CUDA
+    tensors: the kernel on the current stream (``pll_scan.launches``
+    counts); no fallback.
+    """
+    if x.device.type == "cpu":
+        return pll_scan_ref(x, phase0, freq0, alpha, beta, fmin, fmax)
+    _cuda_args("pll_scan", x, torch.complex64)
+    rows, n = x.shape
+    if phase0.shape != (rows,) or freq0.shape != (rows,):
+        raise ValueError("pll_scan: shapes disagree")
+    phase0 = phase0.to(torch.float32).contiguous()
+    freq0 = freq0.to(torch.float32).contiguous()
+    vco = torch.empty_like(x)
+    phase, freq = torch.empty_like(phase0), torch.empty_like(freq0)
+    fn = _pll_launcher()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = fn(x.data_ptr(), vco.data_ptr(), phase0.data_ptr(),
+                freq0.data_ptr(), phase.data_ptr(), freq.data_ptr(), rows, n,
+                alpha, beta, fmin, fmax, stream)
+    if rc != 0:
+        raise RuntimeError(f"pll_scan: CUDA launch failed (error {rc})")
+    pll_scan.launches += 1
+    return vco, phase, freq
+
+
+pll_scan.launches = 0
+
+
+class _PhaseLoop(StreamOp):
+    """Shared set-up of the second-order phase loops."""
+
+    def __init__(self, bandwidth: float, init_phase: float = 0.0,
+                 init_freq: float = 0.0, min_freq: float = -np.pi,
+                 max_freq: float = np.pi, device="cuda"):
+        self.device = resolve_device(device)
+        self.alpha, self.beta = critically_damped(bandwidth)
+        self.init_phase = float(init_phase)
+        self.init_freq = float(init_freq)
+        self.min_freq = float(min_freq)
+        self.max_freq = float(max_freq)
+
+    def init_state(self):
+        return (torch.tensor(self.init_phase, dtype=torch.float32,
+                             device=self.device),
+                torch.tensor(self.init_freq, dtype=torch.float32,
+                             device=self.device))
+
+    def _coefficients(self):
+        return (_f32(self.alpha), _f32(self.beta), _f32(self.min_freq),
+                _f32(self.max_freq))
+
+
+class Pll(_PhaseLoop):
+    """Carrier-tracking PLL: emits the VCO phasor exp(i*phase) *before*
+    advancing on each sample's phase error.  State: (phase, freq)."""
+
+    def __call__(self, state, x):
+        lead = x.shape[:-1]
+        n = x.shape[-1]
+        phase0, freq0 = (s.to(torch.float32).expand(lead).reshape(-1)
+                         for s in state)
+        vco, phase, freq = pll_scan(
+            x.to(torch.complex64).reshape(-1, n).contiguous(), phase0, freq0,
+            *self._coefficients())
+        return (phase.reshape(lead), freq.reshape(lead)), vco.reshape(x.shape)
+
+
+class Costas(_PhaseLoop):
+    """Costas loop of order 2/4/8: outputs ``x * exp(-i*phase)``; the
+    error function depends on the order.  The plain loop on any device."""
+
+    def __init__(self, order: int, bandwidth: float, **kw):
+        assert order in (2, 4, 8)
+        super().__init__(bandwidth, **kw)
+        self.order = order
+
+    def _error(self, v):
+        def step(t):
+            return torch.where(t > 0, 1.0, -1.0).to(torch.float32)
+
+        if self.order == 2:
+            err = v.real * v.imag
+        elif self.order == 4:
+            err = step(v.real) * v.imag - step(v.imag) * v.real
+        else:
+            K = _f32(np.sqrt(2.0) - 1.0)
+            e_big = step(v.real) * v.imag - step(v.imag) * v.real * K
+            e_small = step(v.real) * v.imag * K - step(v.imag) * v.real
+            err = torch.where(v.real.abs() >= v.imag.abs(), e_big, e_small)
+        return torch.clamp(err, -1.0, 1.0)
+
+    def __call__(self, state, x):
+        alpha, beta, fmin, fmax = self._coefficients()
+        lead = x.shape[:-1]
+        phase, freq = (s.to(torch.float32).expand(lead).clone()
+                       for s in state)
+        x = x.to(torch.complex64)
+        y = torch.empty_like(x)
+        for i in range(x.shape[-1]):
+            out = x[..., i] * torch.complex(torch.cos(-phase),
+                                            torch.sin(-phase))
+            err = self._error(out)
+            freq = torch.clamp(freq + beta * err, fmin, fmax)
+            phase = _wrap_pi(phase + freq + alpha * err)
+            y[..., i] = out
+        return (phase, freq), y
+
+
+# -- block-parallel pilot trackers -------------------------------------
+
+class NormalizedPilot(StreamOp):
+    """Block-parallel pilot 'PLL': ``vco = p / |p|`` on the filtered
+    pilot — the bandpass has isolated the 19 kHz tone, so its normalised
+    phasor is the locked VCO.  No carry, no state."""
+
+    def __init__(self, device="cuda"):
+        self.device = resolve_device(device)
+
+    def init_state(self):
+        return ()
+
+    def __call__(self, state, p):
+        mag = p.abs()
+        vco = torch.where(mag > 1e-12, p / torch.clamp(mag, min=1e-12),
+                          torch.ones_like(p))
+        return state, vco.to(torch.complex64)
+
+
+def _unwrap(p: torch.Tensor) -> torch.Tensor:
+    """``jnp.unwrap`` along the last axis (period 2pi): difference, wrap
+    each step into [-pi, pi), sum the corrections."""
+    pi = float(np.pi)
+    dd = p[..., 1:] - p[..., :-1]
+    ddmod = torch.remainder(dd + pi, 2.0 * pi) - pi
+    ddmod = torch.where((ddmod == -pi) & (dd > 0), pi, ddmod)
+    correct = torch.where(dd.abs() < pi, 0.0, ddmod - dd)
+    up = p[..., 1:] + torch.cumsum(correct, dim=-1)
+    return torch.cat([p[..., :1], up], dim=-1)
+
+
+def pilot_phase_fit(p: torch.Tensor, f_nominal: float,
+                    fs: float) -> torch.Tensor:
+    """Per-block linear phase regression on a filtered pilot tone: an
+    infinitely narrow PLL over the block.  Unwraps the pilot phase
+    relative to the nominal frequency, least-squares fits
+    ``theta[n] = a + b*n`` and returns exp(i*theta_fit).  Every reduction
+    runs over the time axis only, so batched (..., n) pilots fit
+    independently per row."""
+    n = p.shape[-1]
+    idx = torch.arange(n, dtype=torch.float32, device=p.device)
+    omega = _f32(2.0 * np.pi * f_nominal / fs)
+    ramp = omega * idx
+    resid = p * torch.complex(torch.cos(ramp), -torch.sin(ramp))
+    theta = _unwrap(torch.atan2(resid.imag, resid.real))
+    nf = float(n)
+    sx = torch.sum(idx)
+    sxx = torch.sum(idx * idx)
+    sy = torch.sum(theta, dim=-1, keepdim=True)
+    sxy = torch.sum(idx * theta, dim=-1, keepdim=True)
+    denom = nf * sxx - sx * sx
+    b = (nf * sxy - sx * sy) / denom
+    a = (sy - b * sx) / nf
+    theta_fit = a + b * idx + ramp
+    return torch.complex(torch.cos(theta_fit),
+                         torch.sin(theta_fit)).to(torch.complex64)

@@ -1,0 +1,115 @@
+"""The AGC and PLL scan kernels against their plain PyTorch loops, on the
+card.
+
+Needs an NVIDIA GPU and nvcc; skips without a card.  Imports no JAX, so
+on a machine without it run it as
+
+    python -m pytest tests/test_torch_seq_loops_cuda.py -q --noconftest
+
+Tolerances: the kernel rounds every product and sum on its own, as the
+plain loop's separate PyTorch kernels do, so the two agree to the last
+place except where PyTorch divides by a Python scalar (it multiplies by
+the reciprocal).  Both loops are contractive, so such differences do not
+grow: 1e-5 relative on the AGC gain and average, 1e-4 on the PLL's unit
+phasor and 1e-4 rad on its carried phase and frequency.
+Shapes: the receiver's (AGC: 750 steps for AM at 15 kHz, 1200 for SSB at
+24 kHz, 150 for CW at 3 kHz; PLL: 12 500 steps at 250 kHz), one and
+several rows, real and complex input, the average starting at 0.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from sdrtpu_torch.kernels import loops  # noqa: E402
+
+
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,n,cplx", [(1, 750, False), (1, 1200, False),
+                                         (1, 150, False), (1, 750, True),
+                                         (5, 1200, True), (3, 257, False),
+                                         (2, 6000, False)])
+def test_agc_scan_kernel_matches_plain(rows, n, cplx):
+    _need_card()
+    rng = np.random.default_rng(31)
+    x = 1e-3 * rng.standard_normal((rows, n))
+    if cplx:
+        x = x + 1e-3j * rng.standard_normal((rows, n))
+    x[:, :4] = 0.0                 # silence first: the average stays 0
+    x[:, n // 2:n // 2 + 3] *= 3e4  # a burst trips the clipping look-ahead
+    x = torch.as_tensor(x.astype(np.complex64 if cplx else np.float32),
+                        device="cuda")
+    fs = 15000.0
+    agc = loops.Agc(1.0, 50.0 / fs, 5.0 / fs, max_gain=10e6,
+                    max_output_amp=10.0, init_gain=np.inf, device="cuda")
+    in_amp = x.abs().float().contiguous()
+    smax = in_amp.flip(-1).cummax(-1).values.flip(-1).contiguous()
+    amp0 = torch.zeros(rows, device="cuda")
+    atk, dcy = np.float32(50.0 / fs), np.float32(5.0 / fs)
+    coef = (float(np.float32(1) - atk), float(atk),
+            float(np.float32(1) - dcy), float(dcy), 1.0, 1e7, 10.0)
+    before = loops.agc_scan.launches
+    g, amp = loops.agc_scan(in_amp, smax, amp0, *coef)
+    torch.cuda.synchronize()
+    assert loops.agc_scan.launches == before + 1
+    g_ref, amp_ref = loops.agc_scan_ref(in_amp, smax, amp0, *coef)
+    assert bool(torch.isfinite(g).all())
+    torch.testing.assert_close(g, g_ref, rtol=1e-5, atol=0.0)
+    torch.testing.assert_close(amp, amp_ref, rtol=1e-5, atol=0.0)
+    # through the op: same launch, state shape follows the rows
+    st, y = agc(agc.init_state(), x if rows > 1 else x[0])
+    assert loops.agc_scan.launches == before + 2
+    assert st.shape == ((rows,) if rows > 1 else ())
+    torch.testing.assert_close(y.reshape(rows, n), x * g_ref.to(x.real.dtype),
+                               rtol=1e-5, atol=0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,n", [(1, 12500), (3, 1000), (2, 255)])
+def test_pll_scan_kernel_matches_plain(rows, n):
+    _need_card()
+    rng = np.random.default_rng(32)
+    fs = 250000.0
+    t = np.arange(n)
+    f = 19000.0 + 40.0 * np.arange(rows)[:, None]
+    x = (0.1 * np.exp(1j * (2 * np.pi * f / fs * t + 0.7))
+         + 0.01 * (rng.standard_normal((rows, n))
+                   + 1j * rng.standard_normal((rows, n))))
+    x = torch.as_tensor(x.astype(np.complex64), device="cuda")
+    w = lambda hz: 2 * np.pi * hz / fs
+    pll = loops.Pll(25000.0 / fs, init_freq=w(19000.0), min_freq=w(18750.0),
+                    max_freq=w(19250.0), device="cuda")
+    phase0 = torch.zeros(rows, device="cuda")
+    freq0 = torch.full((rows,), float(np.float32(w(19000.0))), device="cuda")
+    coef = pll._coefficients()
+    before = loops.pll_scan.launches
+    vco, phase, freq = loops.pll_scan(x, phase0, freq0, *coef)
+    torch.cuda.synchronize()
+    assert loops.pll_scan.launches == before + 1
+    vco_ref, phase_ref, freq_ref = loops.pll_scan_ref(x, phase0, freq0, *coef)
+    torch.testing.assert_close(vco, vco_ref, rtol=0.0, atol=1e-4)
+    wrapped = loops._wrap_pi(phase - phase_ref)
+    assert float(wrapped.abs().max()) <= 1e-4
+    torch.testing.assert_close(freq, freq_ref, rtol=0.0, atol=1e-4)
+    # locked onto the pilot by the end of the block
+    lock = torch.angle(vco[:, -100:] * torch.conj(x[:, -100:]))
+    if n >= 1000:
+        assert float(lock.abs().max()) < 0.5
+
+
+@pytest.mark.cuda
+def test_wrappers_refuse_what_the_kernels_do_not_take():
+    _need_card()
+    x = torch.zeros((2, 8), device="cuda")
+    with pytest.raises(ValueError, match="contiguous 2-D"):
+        loops.agc_scan(x.t(), x.t(), torch.zeros(8, device="cuda"),
+                       0.9, 0.1, 0.9, 0.1, 1.0, 1e4, 10.0)
+    with pytest.raises(ValueError, match="shapes disagree"):
+        loops.pll_scan(x.to(torch.complex64), torch.zeros(3, device="cuda"),
+                       torch.zeros(2, device="cuda"), 0.1, 0.01, -1.0, 1.0)
