@@ -2,9 +2,10 @@
 
     python3 chip_smoke.py            # one card; exits non-zero on any failure
     python3 chip_smoke.py --profile FILE  # also writes the torch.profiler
-                                          # tables of 4 steady-state
-                                          # sub-windows of each path to
-                                          # FILE (fft) and FILE.pallas
+                                          # tables of a steady window of
+                                          # each path to FILE (fft),
+                                          # FILE.pallas, FILE.receiver
+                                          # and FILE.meteor
 
 Phases, each fatal:
 
@@ -36,21 +37,38 @@ Phases, each fatal:
 8. pll path: `BroadcastFm(pilot_mode="pll", rds_out=True)` over 8 blocks
    of 12 500 samples (pll_scan, one launch per block);
 9. ctcss: an NFM chain with the CTCSS squelch on 50 ms blocks, card
-   against CPU, and the squelch op's time per block.
+   against CPU, and the squelch op's time per block;
+10. sync kernels: costas_scan, mm_scan and viterbi_decode against their
+   plain PyTorch versions, at the RDS path's shapes, a few short ones
+   and the meteor path's longest Viterbi, timed beside the plain
+   versions and at the meteor path's shapes;
+11. meteor path: the Meteor M2 LRPT chain of examples/meteor_lrpt.py at
+   the configuration's published parameters — `MeteorDemod` on 16 blocks
+   of 1 s at 150 ksps (costas_scan, mm_scan), the ambiguity resolver's
+   Viterbi (viterbi_decode), ASM search and RS(255,223) on the host, a
+   `.s` soft-symbol file written and deframed again — every CVCDU but
+   at most the first two recovered payload-exact, the host's share of
+   each block timed stage by stage; two blocks turned by 90 degrees
+   lock on the other rotation; card against CPU over the first block,
+   and each kernel held against its plain version on that block's
+   inputs;
+12. rds path: the RDS fixture through `BroadcastFm(pilot_mode="pll")`'s
+   tap, `RdsDemod` and `RdsDecoder`: PI 0xF00D, PS "SDRTPU  ".
 
 Around each path's run every kernel's launch count is set to 0 and read,
-and must be exact (fft: chunk_poly 32, mix_decimate 0; pallas: 256 and
-0; receiver and pll: see `phase_receiver` and `phase_pll`); then the same
-port runs on the CPU, and the card's audio (and waterfall) is held
-against it.
+and must be exact for all seven kernels (fft: chunk_poly 32; pallas:
+mix_decimate 256; receiver, pll, meteor and rds: see their phases; every
+other count 0); then the same port runs on the CPU, and the card's
+output is held against it.
 
 Standard output: the card line, the ``kernels`` JSON line, the fft
-flagship line, the pallas path line, the receiver, pll and ctcss lines,
-and last ``{"ok": true, "device": {...}}``.
+flagship line, the pallas path line, the receiver, pll, ctcss, meteor and
+rds lines, and last ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
@@ -75,16 +93,40 @@ PLL_VCO_ATOL = 1e-4   # pll_scan vs plain loop: unit phasor; carried rad
 DEP_OP_CYCLES, DEP_DIV_CYCLES = 4, 36
 AGC_CHAIN = (8, 1)   # mul add select select | div | min mul compare select
 PLL_CHAIN = (13, 2)  # sub wrap(div+3) mul add max min add add wrap(div+3)
+# Costas (order 4): neg, sinf/cosf (~20), mix (2), error (3), clip (2),
+# freq (4), phase add add, wrap (div + 3)
+COSTAS_CHAIN = (36, 1)
+# M&M: phase*P floor clamp (4), shared-memory bank and window reads (~8),
+# mul, pairwise sum (3), error (4), clip (2), freq (4), phase (2), floor,
+# subtract, offset (3), window address (2)
+MM_CHAIN = (38, 0)
+# Viterbi: add-compare-select (shared-memory read ~8, add, compare and
+# select 2, five shuffles ~30, subtract, write and warp barrier ~8), then
+# the traceback (~6)
+VITERBI_CHAIN = (56, 0)
+COSTAS_REL_TOL = 1e-5     # costas_scan vs plain: of the output's peak
+COSTAS_PHASE_ATOL = 1e-4  # costas_scan vs plain: carried phase and freq
+MM_REL_TOL = 1e-5         # mm_scan vs plain: of the block's peak; valid
+                          # counts and carried offsets equal
+# MeteorDemod on the card vs the port on the CPU (the thresholds of
+# tests/test_oracle_parity.py:386-393)
+METEOR_SYM_ATOL, METEOR_CLOSE_SHARE, METEOR_BYTE_SHARE = 2e-2, 0.995, 0.99
 
 
 def log(*a):
     print(*a, file=sys.stderr, flush=True)
 
 
+def smi_id() -> str:
+    """nvidia-smi's id of the card this process uses: its UUID."""
+    props = torch.cuda.get_device_properties(torch.cuda.current_device())
+    return f"GPU-{props.uuid}"
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
+         "--format=csv,noheader", "-i", smi_id()],
         capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
 
@@ -124,23 +166,68 @@ def profiled(fn):
     return prof, wall, busy
 
 
-def device_ms(fn, reps: int) -> float:
-    """Kernel time on the card per call of ``fn()`` (all its kernels).
-    A trace that comes back without a device event is taken again, and
-    each retake is logged."""
+class SmClocks:
+    """Samples the SM clock of the card in use every 20 ms with
+    ``nvidia-smi -lms`` while the ``with`` block runs; ``summary()`` gives
+    min, median and max in MHz.  The sampler process is ended on exit."""
+
+    def __enter__(self):
+        self._proc = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,"
+             "nounits", "-lms", "20", "-i", smi_id()],
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        return self
+
+    def __exit__(self, *exc):
+        self._proc.terminate()
+        out, _ = self._proc.communicate(timeout=30)
+        self.mhz = [float(v) for v in out.split() if v.strip().isdigit()]
+
+    def summary(self) -> dict:
+        if not self.mhz:
+            return {"samples": 0}
+        return {"samples": len(self.mhz), "min": min(self.mhz),
+                "median": float(np.median(self.mhz)), "max": max(self.mhz)}
+
+
+def kernel_ms_per_launch(prof, names) -> dict:
+    """Device ms per launch of each kernel whose name contains one of
+    ``names``, from a profile."""
+    out = {}
+    for e in prof.key_averages():
+        for name in names:
+            if name in e.key and e.count:
+                total = getattr(e, "self_device_time_total",
+                                getattr(e, "self_cuda_time_total", 0.0))
+                out[name] = total / e.count / 1e3
+    return out
+
+
+def device_ms(fn, reps: int, kernel: str | None = None) -> float:
+    """Device ms per call of ``fn()`` over ``reps`` back-to-back calls,
+    from the profiler: for each kernel name, its mean per launch times
+    its launches per call, ceil(launches the trace holds / reps).  A
+    trace of back-to-back launches has been seen to hold only some of
+    them (1 to 4 of 5 at tens of ms each), so busy time / reps would
+    read low.  With ``kernel``, only the kernels whose name contains it.
+    A short trace is logged; one with no such launch is taken again."""
     fn()
-
-    def run():
-        for _ in range(reps):
-            fn()
-
     for take in range(3):
-        prof, _, busy_us = profiled(run)
-        if busy_us > 0:
-            return busy_us / reps / 1e3
-        log(f"device_ms: take {take + 1} of 3 has no device event among "
-            f"{len(prof.events())} events; taken again")
-    raise AssertionError("the profiler saw no kernel on the card")
+        prof, _, _ = profiled(lambda: [fn() for _ in range(reps)])
+        by_name = {}
+        for e in prof.events():
+            if (e.device_type == torch.autograd.DeviceType.CUDA
+                    and (kernel is None or kernel in e.name)):
+                n, us = by_name.get(e.name, (0, 0.0))
+                by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
+        short = {k: n for k, (n, _) in by_name.items() if n % reps}
+        if short:
+            log(f"device_ms: take {take + 1}: the trace holds {short} "
+                f"launches over {reps} calls")
+        if by_name:
+            return sum(us / n * -(-n // reps)
+                       for n, us in by_name.values()) / 1e3
+    raise AssertionError(f"the profiler saw no {kernel or 'kernel'} launch")
 
 
 def phase_device() -> dict:
@@ -253,7 +340,8 @@ def phase_kernels(flagship_plan, rx_plans: dict) -> list[dict]:
                "library_": library}
         timings[(v, r, q, p)] = t = {"bound_ms": nbytes / H100_BYTES_PER_S * 1e3}
         for key, fn in fns.items():
-            t[key + "ms"] = device_ms(fn, 20)
+            t[key + "ms"] = device_ms(
+                fn, 20, "chunk_poly_kernel" if key == "" else None)
             t[key + "event_ms"] = cuda_ms(fn, 50)
         log(f"chunk_poly {(v, r, q, p)}: exact; {timings[(v, r, q, p)]}")
     main = timings[(valid, R, nif, P_main)]
@@ -373,7 +461,8 @@ def phase_mix_decimate(build: dict) -> dict:
                "plain_": lambda: fc.mix_decimate_ref(*args),
                "library_": library}
         for key, fn in fns.items():
-            t[key + "ms"] = device_ms(fn, 20)
+            t[key + "ms"] = device_ms(
+                fn, 20, "mix_decimate_kernel" if key == "" else None)
             t[key + "event_ms"] = cuda_ms(fn, 20)
         if shape == flagship:
             # the wrapper's host time per call: checks, output allocation
@@ -481,11 +570,21 @@ def build_flagship(device, method: str = "fft"):
 
 
 def kernel_counters() -> dict:
-    from sdrtpu_torch.kernels import chunks, fused_channelizer, loops
+    from sdrtpu_torch.fec import viterbi
+    from sdrtpu_torch.kernels import chunks, clock, fused_channelizer, loops
 
     return {"chunk_poly": chunks.chunk_poly,
             "mix_decimate": fused_channelizer.mix_decimate,
-            "agc_scan": loops.agc_scan, "pll_scan": loops.pll_scan}
+            "agc_scan": loops.agc_scan, "pll_scan": loops.pll_scan,
+            "costas_scan": loops.costas_scan, "mm_scan": clock.mm_scan,
+            "viterbi_decode": viterbi.viterbi_decode}
+
+
+def expected_launches(**counts) -> dict:
+    """Every kernel's expected launch count on a path: 0 unless given."""
+    want = dict.fromkeys(kernel_counters(), 0)
+    want.update(counts)
+    return want
 
 
 def phase_path(card: str, method: str, K: int = 256,
@@ -509,9 +608,8 @@ def phase_path(card: str, method: str, K: int = 256,
     state, (audio, spec) = pipe.scan_repeat(state, x, K)
     torch.cuda.synchronize()
     launches = {name: fn.launches for name, fn in counters.items()}
-    want = ({"chunk_poly": K // sub, "mix_decimate": 0} if method == "fft"
-            else {"chunk_poly": 0, "mix_decimate": K})
-    want.update(agc_scan=0, pll_scan=0)
+    want = (expected_launches(chunk_poly=K // sub) if method == "fft"
+            else expected_launches(mix_decimate=K))
     if launches != want:
         raise AssertionError(f"{method} path launched {launches}, want {want}")
 
@@ -685,7 +783,8 @@ def phase_seq_loops() -> list[dict]:
             "shape": [rows, n], "complex_input": cplx,
             "max_rel_err": max(rel, rel_amp),
             "max_abs_err": (g - g_ref).abs().max().item(),
-            "ms": device_ms(lambda: loops.agc_scan(*args), 20),
+            "ms": device_ms(lambda: loops.agc_scan(*args), 20,
+                            "agc_scan_kernel"),
             "plain_ms": plain_ms,
             # |x|, suffix max and gain per step, the average in and out;
             # ~12 float32 operations per step
@@ -724,7 +823,8 @@ def phase_seq_loops() -> list[dict]:
                 f"carry err {carry}, lock {lock.abs().max().item()} rad")
         pll_rows[(rows, n)] = t = {
             "shape": [rows, n], "max_abs_err": err, "carry_abs_err": carry,
-            "ms": device_ms(lambda: loops.pll_scan(*args), 10),
+            "ms": device_ms(lambda: loops.pll_scan(*args), 10,
+                            "pll_scan_kernel"),
             "plain_ms": plain_ms,
             # complex64 in and out, the carries; ~60 operations per step
             # (atan2f, two wraps, cosf and sinf)
@@ -881,8 +981,8 @@ def phase_receiver(card: str, rx_plans: dict,
     rx.flush()
     torch.cuda.synchronize()
     launches = {name: fn.launches for name, fn in counters.items()}
-    want = {"chunk_poly": 2 * (RX_BLOCKS + 2), "mix_decimate": 0,
-            "agc_scan": 3 * (RX_BLOCKS - 2) + 2 * 2 + 2 + 3, "pll_scan": 0}
+    want = expected_launches(chunk_poly=2 * (RX_BLOCKS + 2),
+                             agc_scan=3 * (RX_BLOCKS - 2) + 2 * 2 + 2 + 3)
     if launches != want:
         raise AssertionError(f"receiver path launched {launches}, want {want}")
 
@@ -1066,8 +1166,7 @@ def phase_pll(card: str) -> dict:
         torch.cuda.synchronize()
     gpu_s = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in counters.items()}
-    want = {"chunk_poly": 0, "mix_decimate": 0, "agc_scan": 0,
-            "pll_scan": blocks}
+    want = expected_launches(pll_scan=blocks)
     if launches != want:
         raise AssertionError(f"pll path launched {launches}, want {want}")
     a_err = r_err = 0.0
@@ -1143,7 +1242,713 @@ def phase_ctcss(card: str) -> dict:
             "card": card}
 
 
+# Meteor M2 LRPT: 72 ksym/s QPSK from 150 ksps (BASELINE config 4,
+# examples/meteor_lrpt.py), 1 s blocks.
+METEOR_FS = 150_000.0
+METEOR_BLOCK = 150_000
+METEOR_BLOCKS = 16        # 2.4 M samples, 1 152 000 symbols, 139 frames
+METEOR_PREAMBLE = 3000    # QPSK symbols before the first frame
+METEOR_PROFILED = 8       # first of the 4 blocks re-run under the profiler
+VITERBI_PATH_STEPS = 88_448  # one block's 72 000 symbols + two frames' tail
+RDS_FIXTURE = "tests/fixtures/wfm_stereo_rds_250k.wav"
+RDS_BLOCK, RDS_BLOCKS = 25_000, 6  # the fixture's first 0.6 s
+
+
+def qpsk_rrc(rng, nsym: int) -> np.ndarray:
+    """QPSK at 72 ksym/s, RRC (beta 0.6) shaped to 150 ksps: 25/12
+    samples a symbol, as examples/meteor_lrpt.py builds it."""
+    tx = np.exp(1j * (rng.integers(0, 4, nsym) * np.pi / 2 + np.pi / 4))
+    return shape_qpsk(tx)
+
+
+def shape_qpsk(tx: np.ndarray) -> np.ndarray:
+    import scipy.signal as sig
+
+    from sdrtpu_torch.kernels import taps as tapsmod
+
+    h = tapsmod.root_raised_cosine_rate(251, 0.6, 1.0, 25.0)
+    n = len(tx) * 25 // 12
+    # the filter's centre lands 125 up-samples (10 out) late
+    return sig.upfirdn(h * 25.0, tx, 25, 12)[10:10 + n]
+
+
+def bpsk_real(rng, nsym: int, sps: float) -> np.ndarray:
+    """A BPSK-like real stream at ``sps`` samples a symbol (the RDS M&M's
+    float mode)."""
+    sym = rng.choice([-1.0, 1.0], nsym)
+    t = np.arange(int(nsym * sps))
+    x = np.convolve(sym[np.minimum((t / sps).astype(int), nsym - 1)],
+                    np.ones(3) / 3, "same")
+    return (x + 0.05 * rng.standard_normal(len(x))).astype(np.float32)
+
+
+def held(name: str, got, want, where) -> dict:
+    """Hold a sync kernel's results ``got`` against its plain version's
+    ``want`` (tuples as the wrappers return them, on any device):
+    costas_scan within COSTAS_REL_TOL of the output's peak and
+    COSTAS_PHASE_ATOL on the carried phase and frequency; mm_scan with
+    equal valid slots and carried offsets, symbols within MM_REL_TOL of
+    the peak; viterbi_decode with equal bits and metrics.  Returns
+    max_abs_err (and the carries' for costas_scan) and whether all is
+    bit-equal; raises on a disagreement, naming ``where``."""
+    from sdrtpu_torch.kernels import loops
+
+    got, want = [g.cpu() for g in got], [w.cpu() for w in want]
+    out = {"bit_equal": all(torch.equal(g, w) for g, w in zip(got, want))}
+    if name == "viterbi_decode":
+        ok = out["bit_equal"]
+        out["max_abs_err"] = 0.0 if ok else float("inf")
+        detail = f"{int((got[0] != want[0]).sum())} bits differ"
+    else:
+        err = out["max_abs_err"] = (got[0] - want[0]).abs().max().item()
+        peak = want[0].abs().max().item()
+        detail = f"max_abs_err {err} (peak {peak})"
+        if name == "costas_scan":
+            carry = out["carry_abs_err"] = max(
+                loops._wrap_pi(got[1] - want[1]).abs().max().item(),
+                (got[2] - want[2]).abs().max().item())
+            ok = err <= COSTAS_REL_TOL * peak and carry <= COSTAS_PHASE_ATOL
+            detail += f", carry err {carry}"
+        else:
+            ok = (torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+                  and err <= MM_REL_TOL * peak)
+            detail += (f", valid {int(got[1].sum())} vs {int(want[1].sum())}"
+                       f", offset {got[2].tolist()} vs {want[2].tolist()}")
+    if not ok:
+        raise AssertionError(f"{name} disagrees with its plain version at "
+                             f"{where}: {detail}")
+    return out
+
+
+def phase_sync_kernels() -> list[dict]:
+    """costas_scan, mm_scan and viterbi_decode against their plain
+    PyTorch versions on the card, each timed beside the plain version.
+
+    Held against the plain version on the card (it takes 200-1 100 us a
+    step there, so these shapes are short): costas_scan order 2 at 500
+    steps (the RDS loops' block), order 4 at 6 000, order 4 with the
+    broken-modulation error at 6 000, order 8 at 2 000 and a 2-row batch
+    at 2 000, within COSTAS_REL_TOL of the output's peak and
+    COSTAS_PHASE_ATOL on the carries; mm_scan complex at 6 000 samples
+    in and float at the RDS path's 500, equal valid counts and offsets,
+    symbols within MM_REL_TOL of the block's peak; viterbi_decode K=7
+    CCSDS at 16 448 steps of noisy soft symbols and K=5 (0o27, 0o31) at
+    2 000, bits and final metrics equal (``torch.equal``).  Held against
+    the plain version on the CPU, bits and metrics equal: viterbi_decode
+    at the meteor path's longest launch, 88 448 steps, one row and two.
+    Timed alone at the meteor path's shapes: costas_scan at 150 000
+    steps, mm_scan at 150 000 samples in (the meteor phase holds both,
+    and viterbi_decode, on the path's own inputs of a whole block:
+    ``path_check``), viterbi_decode at 88 448 steps.  ``ms`` is device
+    time per launch (profiler), ``event_ms`` CUDA events over as many
+    launches at the paths' shapes, ``plain_ms`` the plain version's wall
+    time on the card, once.  Whether each check was bit-equal goes to
+    the log; so does the reckoned serial bound (`serial_chain_ms`),
+    which is not a measurement."""
+    from sdrtpu_torch.fec import viterbi as tv
+    from sdrtpu_torch.kernels import clock, loops
+    from sdrtpu_torch.kernels.psk import MeteorDemod
+
+    rng = np.random.default_rng(17)
+    path = MeteorDemod(device="cuda")
+    coef = path.costas._coefficients()
+
+    def psk(rows, n, mode):
+        order = 8 if mode == loops.COSTAS_ORDER8 else 4
+        if mode == loops.COSTAS_BROKEN:
+            ph = np.asarray(loops.BROKEN_PHASES)[rng.integers(0, 4, (rows, n))]
+        else:
+            ph = 2 * np.pi * rng.integers(0, order, (rows, n)) / order
+        x = np.exp(1j * (ph + 2 * np.pi * 100.0 / METEOR_FS * np.arange(n)
+                         + 0.7))
+        x = x + 0.05 * (rng.standard_normal((rows, n))
+                        + 1j * rng.standard_normal((rows, n)))
+        return torch.as_tensor(x.astype(np.complex64), device="cuda")
+
+    costas_rows = {}
+    costas_main = (1, METEOR_BLOCK, loops.COSTAS_ORDER4)
+    for rows, n, mode in [(1, 500, loops.COSTAS_ORDER2),
+                          (1, 6000, loops.COSTAS_ORDER4),
+                          (1, 6000, loops.COSTAS_BROKEN),
+                          (1, 2000, loops.COSTAS_ORDER8),
+                          (2, 2000, loops.COSTAS_ORDER4), costas_main]:
+        x = psk(rows, n, mode)
+        args = (x, torch.full((rows,), 0.3, device="cuda"),
+                torch.zeros(rows, device="cuda"), *coef, mode)
+        if (rows, n, mode) == costas_main:  # timed alone
+            with SmClocks() as clocks:
+                ms = device_ms(lambda: loops.costas_scan(*args), 5,
+                               "costas_scan_kernel")
+                event_ms = cuda_ms(lambda: loops.costas_scan(*args), 5)
+            costas_rows[costas_main] = t = {
+                "shape": [rows, n], "mode": mode, "ms": ms,
+                "event_ms": event_ms, "sm_clock_mhz": clocks.summary(),
+                **roofline(16 * rows * n + 16 * rows, 40 * rows * n)}
+            log(f"costas_scan {costas_main}: {t}; reckoned serial chain "
+                f"{serial_chain_ms(n, COSTAS_CHAIN):.4f} ms")
+            continue
+        got = loops.costas_scan(*args)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = loops.costas_scan_ref(*args)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        costas_rows[(rows, n, mode)] = t = {
+            "shape": [rows, n], "mode": mode,
+            **held("costas_scan", got, want, (rows, n, mode)),
+            "ms": device_ms(lambda: loops.costas_scan(*args), 20,
+                            "costas_scan_kernel"),
+            "plain_ms": plain_ms,
+            # complex64 in and out and the carries; ~40 operations a step
+            **roofline(16 * rows * n + 16 * rows, 40 * rows * n)}
+        log(f"costas_scan {(rows, n, mode)}: {t}; reckoned serial chain "
+            f"{serial_chain_ms(n, COSTAS_CHAIN):.4f} ms")
+        del x, got, want
+
+    mm_rows = {}
+    mm_main = (True, METEOR_BLOCK)
+    for cplx, n in [(True, 6000), (False, 500), mm_main]:
+        if cplx:
+            mm = path.recov
+            x = qpsk_rrc(rng, n * 12 // 25 + 1)[:n]
+            x = x + 0.05 * (rng.standard_normal(n)
+                            + 1j * rng.standard_normal(n))
+        else:
+            mm = clock.MuellerMuller(5000.0 / 1187.5, 1e-6, 0.01, 0.01,
+                                     complex_mode=False, device="cuda")
+            x = bpsk_real(rng, int(n / mm.omega) + 1, mm.omega)[:n]
+        st = mm.init_state()
+        ext = torch.cat([st["tail"], torch.as_tensor(
+            x.astype(np.complex64 if cplx else np.float32),
+            device="cuda")])[None].contiguous()
+        args = (ext, mm._bank, n, mm.max_out(n), st["offset"].reshape(1),
+                torch.stack([st["phase"], st["freq"], st["last_out"]])[None],
+                torch.stack([st[k] for k in ("p1", "p2", "c1", "c2")])[None],
+                float(np.float32(mm.omega * (1 - mm.omega_rel_limit))),
+                float(np.float32(mm.omega * (1 + mm.omega_rel_limit))),
+                float(np.float32(mm.omega_gain)),
+                float(np.float32(mm.mu_gain)))
+        item = 8 if cplx else 4
+        if (cplx, n) == mm_main:  # timed alone
+            got = clock.mm_scan(*args)
+            n_valid = int(got[1].sum().item())
+            with SmClocks() as clocks:
+                ms = device_ms(lambda: clock.mm_scan(*args), 5,
+                               "mm_scan_kernel")
+                event_ms = cuda_ms(lambda: clock.mm_scan(*args), 5)
+            mm_rows[mm_main] = t = {
+                "shape": [1, n], "complex": cplx, "symbols": n_valid,
+                "slots": args[3], "ms": ms,
+                "event_ms": event_ms, "sm_clock_mhz": clocks.summary(),
+                **roofline(item * (n + 7) + (item + 1) * args[3] + 4096,
+                           40 * n_valid)}
+            log(f"mm_scan {mm_main}: {t}; reckoned serial chain "
+                f"{serial_chain_ms(n_valid, MM_CHAIN):.4f} ms")
+            continue
+        got = clock.mm_scan(*args)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = clock.mm_scan_ref(*args)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        n_valid = int(got[1].sum().item())
+        mm_rows[(cplx, n)] = t = {
+            "shape": [1, n], "complex": cplx, "symbols": n_valid,
+            "slots": args[3], **held("mm_scan", got, want, (cplx, n)),
+            "ms": device_ms(lambda: clock.mm_scan(*args), 20,
+                            "mm_scan_kernel"),
+            "plain_ms": plain_ms,
+            # ext in, symbols and the mask out, the bank; ~40 operations a
+            # symbol
+            **roofline(item * (n + 7) + (item + 1) * args[3] + 4096,
+                       40 * n_valid)}
+        log(f"mm_scan {(cplx, n)}: {t}; reckoned serial chain "
+            f"{serial_chain_ms(n_valid, MM_CHAIN):.4f} ms")
+        del ext, got, want
+
+    vit_rows = {}
+    vit_main = (1, VITERBI_PATH_STEPS, 7)
+    for rows, n, K, hold in [(1, 16_448, 7, "cuda"), (1, 2000, 5, "cuda"),
+                             (1, VITERBI_PATH_STEPS, 7, "cpu"),
+                             (2, VITERBI_PATH_STEPS, 7, "cpu")]:
+        polys = (0o171, 0o133) if K == 7 else (0o27, 0o31)
+        enc, dec = tv.ConvEncoder(K, polys), tv.ViterbiDecoder(K, polys,
+                                                               device="cuda")
+        soft = np.stack([enc.encode_to_soft(rng.integers(0, 2, n))
+                         for _ in range(rows)])
+        soft = soft + 0.7 * rng.standard_normal(soft.shape)
+        sym = torch.as_tensor(soft.astype(np.float32).reshape(rows, n, 2),
+                              device="cuda")
+        args = (sym, dec.exp_prev, dec.prev, dec.prev_bit)
+        got = tv.viterbi_decode(*args)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = tv.viterbi_decode_ref(sym.to(hold), *args[1:])
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        check = held("viterbi_decode", got, want,
+                     f"{(rows, n, K)}, plain version on the {hold}")
+        with SmClocks() as clocks:
+            reps = 5 if n >= 50_000 else 20
+            ms = device_ms(lambda: tv.viterbi_decode(*args), reps,
+                           "viterbi_kernel")
+            event_ms = cuda_ms(lambda: tv.viterbi_decode(*args), reps)
+        vit_rows[(rows, n, K)] = t = {
+            "shape": [rows, n], "K": K, "ms": ms,
+            "event_ms": event_ms, "sm_clock_mhz": clocks.summary(), **check,
+            ("plain_ms" if hold == "cuda" else "plain_cpu_ms"): plain_ms,
+            # soft symbols in, bits and metrics out; per step and state
+            # two branch metrics (2 mul + add), two adds, a compare, a
+            # select, a share of the max and the subtract: ~10
+            **roofline(rows * n * 9 + rows * dec.S * 4,
+                       rows * n * dec.S * 10)}
+        log(f"viterbi_decode {(rows, n, K)}: {t}; reckoned serial chain "
+            f"{serial_chain_ms(n, VITERBI_CHAIN):.4f} ms")
+        del sym, got, want
+
+    def entry(name, source, replaces, main, rows, tol):
+        """The path's shape gives ``ms`` and the bound; ``plain_ms`` is
+        the plain loop on the card (~13-60 launches a step) at the
+        longest shape held there (``plain_shape``)."""
+        m = rows[main]
+        held = [r for r in rows.values() if "max_abs_err" in r]
+        longest = max((r for r in held if "plain_ms" in r),
+                      key=lambda r: r["shape"][0] * r["shape"][1])
+        return {
+            "name": name, "route": "cuda", "source": source,
+            # no Pallas kernel: the reference's lax.scan of this loop
+            "replaces": replaces,
+            "launches": None,  # filled in from its path's run
+            "max_abs_err": max(r["max_abs_err"] for r in held),
+            **tol,
+            "ms": m["ms"], "event_ms": m["event_ms"],
+            "plain_ms": longest["plain_ms"],
+            "plain_shape": longest["shape"],
+            "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
+            "library_ms": None,  # no PyTorch call computes this recurrence
+            "shape": m["shape"],
+            "other_shapes": [v for k, v in rows.items() if k != main]}
+
+    return [
+        entry("costas_scan", "sdrtpu_torch/csrc/sync_loops.cu",
+              "sdrtpu/kernels/loops.py:144", costas_main, costas_rows,
+              {"rel_tol": COSTAS_REL_TOL, "carry_atol": COSTAS_PHASE_ATOL}),
+        entry("mm_scan", "sdrtpu_torch/csrc/sync_loops.cu",
+              "sdrtpu/kernels/clock.py:165", mm_main, mm_rows,
+              {"rel_tol": MM_REL_TOL}),
+        entry("viterbi_decode", "sdrtpu_torch/csrc/viterbi.cu",
+              "sdrtpu/fec/viterbi.py:128", vit_main, vit_rows,
+              {"bits": "equal"}),
+    ]
+
+
+def meteor_capture(seed: int):
+    """examples/meteor_lrpt.py's burst at the path's length: a QPSK
+    preamble, then CADUs of random CVCDUs from the port's `CcsdsEncoder`,
+    then QPSK fill; RRC-shaped to 150 ksps; phase 0.7 rad, 100 Hz CFO,
+    AWGN 0.05.  Returns (cvcdus, complex64 samples)."""
+    from sdrtpu_torch.decoders.ccsds import CVCDU_BYTES, CcsdsEncoder
+
+    rng = np.random.default_rng(seed)
+    n = METEOR_BLOCKS * METEOR_BLOCK
+    n_sym = n * 12 // 25
+    frame_syms = 32 + 1024 * 8  # one CADU: 8 224 bits, 8 224 QPSK symbols
+    n_frames = (n_sym - METEOR_PREAMBLE - 1000) // frame_syms
+    cvs = [rng.integers(0, 256, CVCDU_BYTES).astype(np.uint8)
+           for _ in range(n_frames)]
+    soft = CcsdsEncoder().encode(cvs)
+    frames = (soft[0::2] + 1j * soft[1::2]) / np.sqrt(2)
+
+    def fill(k):
+        return np.exp(1j * (rng.integers(0, 4, k) * np.pi / 2 + np.pi / 4))
+
+    tx = np.concatenate([fill(METEOR_PREAMBLE), frames,
+                         fill(n_sym - METEOR_PREAMBLE - len(frames))])
+    x = shape_qpsk(tx)
+    assert len(x) == n, len(x)
+    x = x * np.exp(1j * (0.7 + 2 * np.pi * 100.0 * np.arange(n) / METEOR_FS))
+    x = x + 0.05 * (rng.standard_normal(n) + 1j * rng.standard_normal(n))
+    return cvs, x.astype(np.complex64)
+
+
+def check_frames(frames, cvs, what: str) -> int:
+    """Every CVCDU but at most the first two, payload-exact, in order,
+    nothing else; returns how many were missed at the head."""
+    skip = len(cvs) - len(frames)
+    ok = 0 <= skip <= 2 and all(
+        np.array_equal(f, c) for f, c in zip(frames, cvs[skip:]))
+    if not ok:
+        raise AssertionError(f"meteor {what}: {len(frames)} frames for "
+                             f"{len(cvs)} sent, payload-exact and in order: "
+                             f"{ok}")
+    return skip
+
+
+def expected_viterbi(blocks: int, lock_block: int, rotation: int) -> int:
+    """viterbi_decode launches of a `QpskAmbiguityResolver` over
+    ``blocks`` calls: both candidates on each block before the lock; on
+    the lock block candidate 0, and candidate 1 after it when that is
+    the one that locks; one a block after the lock."""
+    return 2 * lock_block + 1 + rotation + (blocks - lock_block - 1)
+
+
+@contextlib.contextmanager
+def host_timers(acc: dict):
+    """While the ``with`` block runs, adds the wall ms of each call of the
+    meteor path's host stages to ``acc[key]`` and counts the calls in
+    ``acc[key + "_calls"]``: "deframe" (`CcsdsDeframer.process`: the
+    soft tail's cat, the Viterbi launch, the wait for it and the bits'
+    copy, then ``_scan``), "scan" (``_scan``: the per-bit ASM search and
+    the RS decodes) and "rs" (`rs_interleave_decode`)."""
+    from sdrtpu_torch.decoders import ccsds
+
+    saved = []
+    for owner, attr, key in ((ccsds.CcsdsDeframer, "process", "deframe"),
+                             (ccsds.CcsdsDeframer, "_scan", "scan"),
+                             (ccsds, "rs_interleave_decode", "rs")):
+        fn = getattr(owner, attr)
+        saved.append((owner, attr, fn))
+
+        def timed(*a, _fn=fn, _key=key, **k):
+            t0 = time.perf_counter()
+            try:
+                return _fn(*a, **k)
+            finally:
+                acc[_key] = acc.get(_key, 0.0) + (
+                    time.perf_counter() - t0) * 1e3
+                acc[_key + "_calls"] = acc.get(_key + "_calls", 0) + 1
+
+        setattr(owner, attr, timed)
+    try:
+        yield acc
+    finally:
+        for owner, attr, fn in saved:
+            setattr(owner, attr, fn)
+
+
+def phase_meteor(card: str, profile_path: str | None = None) -> dict:
+    """The Meteor M2 LRPT receive path on the card, as
+    examples/meteor_lrpt.py runs it: `MeteorDemod` (its defaults: the
+    configuration's published parameters) on 16 blocks of 1 s, the valid
+    symbols to `QpskAmbiguityResolver.process` (Viterbi on the card, ASM
+    search and RS on the host) and to a `SoftSymbolWriter`; then the
+    `.s` file read back and deframed once more.  The capture locks on
+    rotation 0; its first two blocks turned by 90 degrees lock on
+    rotation 1 and give the same frames.
+
+    Launch counts, worked out from the code: one costas_scan and one
+    mm_scan per block; viterbi_decode as `expected_viterbi` from the
+    block and rotation the resolver locked on; nothing else.
+
+    Then the port on the CPU runs the first block (150 000 samples, the
+    path's shape), its symbols and frames held against the card's; the
+    inputs and outputs of its three plain versions are recorded and each
+    kernel is launched on the card on those inputs and held against them
+    (``kernel_checks``)."""
+    import copy
+
+    from sdrtpu_torch.decoders import ccsds
+    from sdrtpu_torch.fec import viterbi as tv
+    from sdrtpu_torch.io.symbols import (SoftSymbolWriter, quantize_soft,
+                                         read_soft_file)
+    from sdrtpu_torch.kernels import clock, loops
+    from sdrtpu_torch.kernels.psk import MeteorDemod
+
+    t0 = time.perf_counter()
+    cvs, x = meteor_capture(23)
+    capture_s = time.perf_counter() - t0
+    out_dir = os.path.join("build", "chip_smoke")
+    os.makedirs(out_dir, exist_ok=True)
+    s_path = os.path.join(out_dir, "meteor.s")
+
+    acc = {}
+
+    def run_blocks(state, resolver, x, first, last, writer=None, times=None):
+        frames = []
+        for b in range(first, last):
+            before = dict(acc)
+            t0 = time.perf_counter()
+            xb = torch.as_tensor(x[b * METEOR_BLOCK:(b + 1) * METEOR_BLOCK],
+                                 device="cuda")
+            state, (syms, valid) = demod(state, xb)
+            t1 = time.perf_counter()
+            got = syms[valid]  # waits for the card
+            t2 = time.perf_counter()
+            new = resolver.process(got)
+            t3 = time.perf_counter()
+            if writer is not None:
+                writer.write(got)
+            frames += new
+            if times is not None:
+                spent = {k: acc.get(k, 0.0) - before.get(k, 0.0)
+                         for k in ("deframe", "scan", "rs")}
+                times.append({
+                    "ms": (time.perf_counter() - t0) * 1e3,
+                    "demod_enqueue_ms": (t1 - t0) * 1e3,
+                    "symbols_wait_ms": (t2 - t1) * 1e3,
+                    "viterbi_wait_copy_ms": spent["deframe"] - spent["scan"],
+                    "asm_search_ms": spent["scan"] - spent["rs"],
+                    "rs_decode_ms": spent["rs"],
+                    "resolver_other_ms": (t3 - t2) * 1e3 - spent["deframe"],
+                    "soft_write_ms": (time.perf_counter() - t3) * 1e3,
+                    "symbols": int(got.shape[0]), "frames": len(new),
+                    "locked": resolver.locked, "first_symbols": got})
+        return state, frames
+
+    counters = kernel_counters()
+    demod = MeteorDemod(device="cuda")
+    resolver = ccsds.QpskAmbiguityResolver(device="cuda")
+    state = demod.init_state()
+    with host_timers(acc):
+        for fn in counters.values():
+            fn.launches = 0
+        times, frames = [], []
+        with SoftSymbolWriter(s_path) as writer, SmClocks() as run_clocks:
+            state, frames = run_blocks(state, resolver, x, 0,
+                                       METEOR_PROFILED, writer, times)
+            snapshot = copy.deepcopy((state, resolver))
+            state, more = run_blocks(state, resolver, x, METEOR_PROFILED,
+                                     METEOR_BLOCKS, writer, times)
+            frames += more
+        torch.cuda.synchronize()
+        launches = {name: fn.launches for name, fn in counters.items()}
+        main_calls = acc["deframe_calls"]
+        lock = next(b for b, t in enumerate(times) if t["locked"] is not None)
+        want = expected_launches(
+            costas_scan=METEOR_BLOCKS, mm_scan=METEOR_BLOCKS,
+            viterbi_decode=expected_viterbi(METEOR_BLOCKS, lock, 0))
+        if resolver.locked != 0 or launches != want:
+            raise AssertionError(
+                f"meteor path locked rotation {resolver.locked} on block "
+                f"{lock} and launched {launches}, want rotation 0 and {want}")
+        skip = check_frames(frames, cvs, "direct")
+        if [len(f) for f in resolver.frames] != [len(f) for f in frames]:
+            raise AssertionError("meteor: the resolver's frame log differs")
+
+        # the first two blocks turned by 90 degrees: the resolver tries
+        # both candidates and locks on rotation 1, with the same frames
+        x_rot = x[:2 * METEOR_BLOCK] * np.complex64(1j)
+        for fn in counters.values():
+            fn.launches = 0
+        res_rot, times_rot = ccsds.QpskAmbiguityResolver(device="cuda"), []
+        _, frames_rot = run_blocks(demod.init_state(), res_rot, x_rot, 0, 2,
+                                   times=times_rot)
+        torch.cuda.synchronize()
+        launches_rot = {name: fn.launches for name, fn in counters.items()}
+        n_first = times[0]["frames"] + times[1]["frames"]
+        lock_rot = next((b for b, t in enumerate(times_rot)
+                         if t["locked"] is not None), None)
+        want_rot = expected_launches(
+            costas_scan=2, mm_scan=2,
+            viterbi_decode=expected_viterbi(2, lock_rot or 0, 1))
+        if (res_rot.locked != 1 or launches_rot != want_rot
+                or len(frames_rot) != n_first or not all(
+                    np.array_equal(a, b)
+                    for a, b in zip(frames_rot, frames[:n_first]))):
+            raise AssertionError(
+                f"meteor, turned 90 degrees: locked rotation "
+                f"{res_rot.locked}, launched {launches_rot} (want "
+                f"{want_rot}), {len(frames_rot)} frames for {n_first}")
+
+        # the .s round trip: read back, deframe in one call
+        soft_syms = read_soft_file(s_path)
+        for fn in counters.values():
+            fn.launches = 0
+        calls_before = acc["deframe_calls"]
+        t0 = time.perf_counter()
+        frames_s, res_s = ccsds.deframe_qpsk_symbols(soft_syms, device="cuda")
+        torch.cuda.synchronize()
+        s_trip_s = time.perf_counter() - t0
+        launches_s = {name: fn.launches for name, fn in counters.items()}
+        if launches_s != expected_launches(
+                viterbi_decode=acc["deframe_calls"] - calls_before):
+            raise AssertionError(f"meteor .s round trip launched {launches_s}")
+        skip_s = check_frames(frames_s, cvs, ".s round trip")
+
+    # where the time goes: 4 blocks again from the snapshot, profiled
+    st_p, res_p = snapshot
+    with SmClocks() as prof_clocks:
+        prof, p_wall, busy_us = profiled(
+            lambda: run_blocks(st_p, res_p, x, METEOR_PROFILED,
+                               METEOR_PROFILED + 4))
+    on_path = kernel_ms_per_launch(
+        prof, ("costas_scan_kernel", "mm_scan_kernel", "viterbi_kernel"))
+    busy_ms_block = busy_us / 1e3 / 4
+    steady = times[METEOR_PROFILED:METEOR_PROFILED + 4]
+    wall_ms_block = float(np.median([t["ms"] for t in steady]))
+    if profile_path:
+        os.makedirs(os.path.dirname(profile_path) or ".", exist_ok=True)
+        with open(profile_path, "w") as fh:
+            fh.write(f"{card}\nmeteor path: 4 blocks of {METEOR_BLOCK}; wall "
+                     f"{p_wall * 1e3:.3f} ms under the profiler; device busy "
+                     f"{busy_us / 1e3:.3f} ms\n")
+            fh.write(prof.key_averages().table(
+                sort_by="self_cuda_time_total", row_limit=30))
+        log(f"profile -> {profile_path}")
+
+    # the port on the CPU over the first block, the plain versions'
+    # inputs and outputs recorded
+    mods = {"costas_scan": loops, "mm_scan": clock, "viterbi_decode": tv}
+    saved = {name: getattr(m, name) for name, m in mods.items()}
+    recorded = {name: [] for name in mods}
+
+    def recorder(name):
+        def record(*args):
+            out = saved[name](*args)
+            recorded[name].append((args, out))
+            return out
+        return record
+
+    for name, m in mods.items():
+        setattr(m, name, recorder(name))
+    try:
+        t0 = time.perf_counter()
+        cpu_demod = MeteorDemod(device="cpu")
+        with torch.inference_mode():  # less work per op in the plain loops
+            _, (syms, valid) = cpu_demod(cpu_demod.init_state(),
+                                         torch.as_tensor(x[:METEOR_BLOCK]))
+            c = syms[valid]
+            frames_cpu = ccsds.QpskAmbiguityResolver(device="cpu").process(c)
+        cpu_s = time.perf_counter() - t0
+    finally:
+        for name, m in mods.items():
+            setattr(m, name, saved[name])
+    g, c = times[0]["first_symbols"].cpu().numpy(), c.numpy()
+    m = min(len(g), len(c))
+    close = float(np.isclose(g[:m], c[:m], atol=METEOR_SYM_ATOL).mean())
+    byte_match = float((quantize_soft(g[:m]) == quantize_soft(c[:m])).mean())
+    n0 = times[0]["frames"]
+    if not (abs(len(g) - len(c)) <= 2 and close > METEOR_CLOSE_SHARE
+            and byte_match > METEOR_BYTE_SHARE and len(frames_cpu) == n0
+            and all(np.array_equal(a, b)
+                    for a, b in zip(frames_cpu, frames[:n0]))):
+        raise AssertionError(
+            f"meteor: card vs CPU: {len(g)} vs {len(c)} symbols, close "
+            f"{close}, .s bytes equal {byte_match}, {len(frames_cpu)} frames "
+            f"for the card's {n0}")
+    kernel_checks = {}
+    for name, calls in recorded.items():
+        if not calls:
+            raise AssertionError(f"meteor: the CPU run made no {name} call")
+        # each recorded call again, its kernel on the card
+        checks = [held(name, saved[name](*(
+            a.cuda() if torch.is_tensor(a) else a for a in args)), out,
+            f"the meteor path's inputs {tuple(args[0].shape)}")
+            for args, out in calls]
+        kernel_checks[name] = {
+            "shapes": [list(args[0].shape) for args, _ in calls],
+            "max_abs_err": max(c["max_abs_err"] for c in checks),
+            "bit_equal": all(c["bit_equal"] for c in checks)}
+        log(f"meteor: {name} held on the path's inputs: "
+            f"{kernel_checks[name]}")
+
+    total_s = sum(t["ms"] for t in times) / 1e3
+    after = times[lock + 1:]
+    split = ("demod_enqueue_ms", "symbols_wait_ms", "viterbi_wait_copy_ms",
+             "asm_search_ms", "rs_decode_ms", "resolver_other_ms",
+             "soft_write_ms")
+    return {
+        "meteor": "Meteor M2 LRPT: MeteorDemod defaults (72 ksym/s from 150 "
+                  "ksps, RRC 33 taps beta 0.6, AGC 0.1, Costas bw 0.005, "
+                  "omega gain 1e-6, mu gain 0.01), CCSDS K=7 r=1/2, "
+                  f"RS(255,223) x 4; {METEOR_BLOCKS} blocks of "
+                  f"{METEOR_BLOCK} samples",
+        "blocks": METEOR_BLOCKS, "samples": METEOR_BLOCKS * METEOR_BLOCK,
+        "frames_sent": len(cvs), "frames": len(frames),
+        "frames_missed_at_head": skip,
+        "s_round_trip_frames": len(frames_s),
+        "s_round_trip_missed_at_head": skip_s,
+        "s_round_trip_seconds": s_trip_s,
+        "symbols": sum(t["symbols"] for t in times),
+        "locked_rotation": resolver.locked, "locked_at_block": lock,
+        "turned_90": {"blocks": 2, "locked_rotation": res_rot.locked,
+                      "locked_at_block": lock_rot, "frames": len(frames_rot),
+                      "kernel_launches": launches_rot},
+        "rs_corrections": {"frames": len(resolver.rs_errors),
+                           "total": int(sum(resolver.rs_errors)),
+                           "max_per_frame": int(max(resolver.rs_errors)),
+                           "mean_per_frame": float(np.mean(
+                               resolver.rs_errors))},
+        "kernel_launches": launches, "deframer_calls": main_calls,
+        "s_round_trip_launches": launches_s,
+        "ms_per_block": [t["ms"] for t in times],
+        "median_ms_per_block_after_lock": float(np.median(
+            [t["ms"] for t in after])),
+        "real_time_factor": METEOR_BLOCKS * METEOR_BLOCK / METEOR_FS / total_s,
+        "real_time_factor_after_lock": len(after) * METEOR_BLOCK / METEOR_FS
+        / (sum(t["ms"] for t in after) / 1e3),
+        # host clock around each part of a block, median over the blocks
+        # after the lock; the two waits include the card's kernels
+        "split_ms_per_block_after_lock": {
+            k: float(np.median([t[k] for t in after])) for k in split},
+        "rs_ms_per_frame_after_lock": sum(t["rs_decode_ms"] for t in after)
+        / max(1, sum(t["frames"] for t in after)),
+        "device_busy_ms_per_block": busy_ms_block,
+        "device_busy_share": busy_ms_block / wall_ms_block,
+        # each kernel's device ms per launch inside the profiled window
+        "kernel_ms_on_path": on_path,
+        "sm_clock_mhz": run_clocks.summary(),
+        "profiled_sm_clock_mhz": prof_clocks.summary(),
+        "card_vs_cpu": {"samples": METEOR_BLOCK, "symbols": [len(g), len(c)],
+                        "close_share": close,
+                        "s_bytes_equal_share": byte_match,
+                        "frames": [n0, len(frames_cpu)],
+                        "cpu_seconds": cpu_s},
+        "kernel_checks": kernel_checks,
+        "capture_seconds": capture_s,
+        "card": card,
+    }
+
+
+def phase_rds(card: str) -> dict:
+    """RDS on the card: the fixture's first 0.6 s through
+    `BroadcastFm(pilot_mode="pll", rds_out=True)` in 6 blocks of 25 000,
+    `RdsDemod` on each block's 500-sample tap, `RdsDecoder` on the valid
+    bits: PI 0xF00D and PS "SDRTPU  " (tests/test_oracle_parity.py:
+    304-305).  Launches: two costas_scan, one mm_scan and one pll_scan
+    per block, nothing else."""
+    from sdrtpu_torch.decoders.rds import RdsDecoder, RdsDemod
+    from sdrtpu_torch.io.wav import read_iq_wav
+    from sdrtpu_torch.kernels.wfm import BroadcastFm
+
+    info, iq = read_iq_wav(RDS_FIXTURE)
+    fm = BroadcastFm(75000.0, float(info.samplerate), rds_out=True,
+                     pilot_mode="pll", device="cuda")
+    demod, dec = RdsDemod(device="cuda"), RdsDecoder()
+    sf, sd = fm.init_state(), demod.init_state()
+    counters = kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        for b in range(RDS_BLOCKS):
+            xb = torch.as_tensor(iq[b * RDS_BLOCK:(b + 1) * RDS_BLOCK],
+                                 device="cuda")
+            sf, (_, tap) = fm(sf, xb)
+            sd, (bits, valid) = demod(sd, tap)
+            dec.process(bits[valid].cpu().numpy())
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    want = expected_launches(costas_scan=2 * RDS_BLOCKS, mm_scan=RDS_BLOCKS,
+                             pll_scan=RDS_BLOCKS)
+    if launches != want:
+        raise AssertionError(f"rds path launched {launches}, want {want}")
+    if dec.pi_code != 0xF00D or dec.program_service_name != "SDRTPU  ":
+        raise AssertionError(f"rds: PI {dec.pi_code} PS "
+                             f"{dec.program_service_name!r}")
+    return {"rds": "BroadcastFm pll + rds_out, RdsDemod, RdsDecoder on "
+                   f"{RDS_FIXTURE}: 6 blocks of 25 000 samples at 250 kHz",
+            "pi": f"{dec.pi_code:#06x}", "ps": dec.program_service_name,
+            "kernel_launches": launches,
+            "ms_per_block": wall * 1e3 / RDS_BLOCKS, "card": card}
+
+
 def main(argv) -> int:
+    t_start = time.perf_counter()
+
+    def done(what):
+        log(f"phase {what}: done at {time.perf_counter() - t_start:.1f} s")
+
     dev = phase_device()
     built = phase_build()
     plan_pipe, _ = build_flagship("cpu")
@@ -1153,7 +1958,11 @@ def main(argv) -> int:
     kernels = phase_kernels((fused.valid, fused.ratio, fused.nif,
                              fused.n_chunks * plan_pipe._subk(256)), rx_plans)
     kernels.append(phase_mix_decimate(built["mix_decimate"]))
+    done("build and K1/K2 checks")
     kernels += phase_seq_loops()
+    done("seq loops")
+    kernels += phase_sync_kernels()
+    done("sync kernels")
     profile_path = (argv[argv.index("--profile") + 1]
                     if "--profile" in argv else None)
     paths = {}
@@ -1164,6 +1973,7 @@ def main(argv) -> int:
             profile_path=(profile_path + (".pallas" if method == "pallas"
                                           else "")
                           if profile_path else None))
+        done(f"{method} path")
         # each kernel's launches are read on its own path
         for k in kernels:
             if k["name"] == kernel:
@@ -1172,9 +1982,23 @@ def main(argv) -> int:
     paths["receiver"] = phase_receiver(
         dev["card"], rx_plans,
         profile_path + ".receiver" if profile_path else None)
+    done("receiver path")
     paths["pll"] = phase_pll(dev["card"])
     paths["ctcss"] = phase_ctcss(dev["card"])
+    done("pll and ctcss")
+    paths["meteor"] = phase_meteor(
+        dev["card"], profile_path + ".meteor" if profile_path else None)
+    done("meteor path")
+    paths["rds"] = phase_rds(dev["card"])
+    done("rds path")
     for k in kernels:
+        if k["name"] in ("costas_scan", "mm_scan", "viterbi_decode"):
+            k["launches"] = paths["meteor"]["kernel_launches"][k["name"]]
+            k["path_check"] = check = paths["meteor"]["kernel_checks"][
+                k["name"]]
+            k["max_abs_err"] = max(k["max_abs_err"], check["max_abs_err"])
+            k["rds_path_launches"] = paths["rds"]["kernel_launches"][
+                k["name"]]
         if k["name"] == "agc_scan":
             k["launches"] = paths["receiver"]["kernel_launches"]["agc_scan"]
         if k["name"] == "pll_scan":
@@ -1185,7 +2009,8 @@ def main(argv) -> int:
     assert all(k["launches"] for k in kernels), [
         (k["name"], k["launches"]) for k in kernels]
     print(json.dumps({"kernels": kernels}), flush=True)
-    for name in ("fft", "pallas", "receiver", "pll", "ctcss"):
+    for name in ("fft", "pallas", "receiver", "pll", "ctcss", "meteor",
+                 "rds"):
         print(json.dumps(paths[name]), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": dev["kind"], "count": dev["count"]}}),

@@ -9,16 +9,21 @@ imports nothing of ``sdrtpu`` and nothing of JAX.
   dicts and tuples of torch tensors that live on the op's device.
 - Every constructor takes ``device`` (default ``"cuda"``) and raises when
   CUDA is unavailable unless the caller asked for ``"cpu"``.
-- Four stages are CUDA kernels written by hand (``csrc/*.cu``): the
+- Seven stages are CUDA kernels written by hand (``csrc/*.cu``): the
   overlap-save chunk builder (`kernels.chunks.chunk_poly`), the fused
-  mix + decimate (`kernels.fused_channelizer.mix_decimate`) and the AGC
-  and PLL scans (`kernels.loops.agc_scan`, `pll_scan`); on a CPU tensor
-  each wrapper runs its plain PyTorch version instead.
+  mix + decimate (`kernels.fused_channelizer.mix_decimate`), the AGC,
+  PLL and Costas scans (`kernels.loops.agc_scan`, `pll_scan`,
+  `costas_scan`), the Mueller & Muller clock recovery
+  (`kernels.clock.mm_scan`) and the Viterbi decoder
+  (`fec.viterbi.viterbi_decode`); on a CPU tensor each wrapper runs its
+  plain PyTorch version instead.
 
 Subpackages mirror sdrtpu: ``graph`` (stream-op protocol, checkpoints),
 ``kernels`` (DSP ops), ``shard`` (channelizer), ``apps`` (the multi-VFO
 WBFM pipeline, the radio chain, the receiver and its command line),
-``io`` (WAV files); ``convert`` carries state between the two packages.
+``fec`` (Viterbi, Reed-Solomon), ``decoders`` (CCSDS frames, RDS),
+``io`` (WAV and soft-symbol files); ``convert`` carries state between
+the two packages.
 """
 
 from __future__ import annotations

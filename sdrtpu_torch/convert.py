@@ -11,7 +11,11 @@ state.
 ``init_state()``, or ``np.asarray`` of a carried state; any array with
 ``__array__`` works) and returns torch tensors on ``device``.  Scalar
 leaves (a mixer phase, an AGC average, the CTCSS detector's booleans and
-int32 tone) become 0-d tensors of the same dtype.  The reference's
+int32 tone, the M&M's int32 offset and complex64 error memory, the RDS
+demodulator's uint8 differential carry) become 0-d tensors of the same
+dtype; the digital chains (`Costas`, `MeteorCostas`, `FastAgc`,
+`MuellerMuller`, `MeteorDemod`, `Psk`, `RdsDemod`) keep the reference's
+keys, so their states convert this way too.  The reference's
 receiver keeps complex leaves as planar ``(re, im)`` pairs across its
 compiled step (a named tuple with those two fields); such a pair is
 joined into one complex leaf.  ``state_to_numpy`` goes back, to complex

@@ -1,3 +1,3 @@
-"""File IQ ingest and audio egress."""
+"""File IQ ingest, audio egress and soft-symbol (.s) files."""
 
-from . import wav  # noqa: F401
+from . import symbols, wav  # noqa: F401

@@ -1,11 +1,11 @@
 """Feedback control loops (PyTorch counterpart of ``sdrtpu/kernels/loops.py``).
 
-- `Agc` and `Pll` are per-sample recurrences.  On a CUDA tensor each
-  runs as one launch of a hand-written scan (`agc_scan`, `pll_scan`,
-  ``csrc/seq_loops.cu``); on a CPU tensor the wrapper runs the plain
-  PyTorch loop (`agc_scan_ref`, `pll_scan_ref`), and only then.
-- `Costas` is the plain loop on any device (its users, the PSK and RDS
-  decoders, are not ported yet).
+- `Agc`, `Pll` and `Costas` are per-sample recurrences.  On a CUDA
+  tensor each runs as one launch of a hand-written scan (`agc_scan`,
+  `pll_scan`, ``csrc/seq_loops.cu``; `costas_scan`,
+  ``csrc/sync_loops.cu``); on a CPU tensor the wrapper runs the plain
+  PyTorch loop (`agc_scan_ref`, `pll_scan_ref`, `costas_scan_ref`), and
+  only then.
 - `NormalizedPilot` and `pilot_phase_fit` are the block-parallel pilot
   trackers with no sequential carry.
 
@@ -225,6 +225,114 @@ def pll_scan(x, phase0, freq0, alpha, beta, fmin, fmax):
 pll_scan.launches = 0
 
 
+# -- Costas ------------------------------------------------------------
+
+# error functions of `costas_scan` (the kernel's `mode` argument)
+COSTAS_ORDER2, COSTAS_ORDER4, COSTAS_ORDER8, COSTAS_BROKEN = range(4)
+# constellation phases of the malfunctioning Meteor-M2 transmitter
+# (``meteor_costas.h``), the reference of `COSTAS_BROKEN`
+BROKEN_PHASES = (0.47439988279190737, 2.1777839908413044,
+                 3.8682349942715186, -0.29067248091319986)
+_K8 = _f32(np.sqrt(2.0) - 1.0)
+
+
+def _sign(t: torch.Tensor) -> torch.Tensor:
+    """+1 where t > 0, else -1 (the reference's ``step``)."""
+    return torch.where(t > 0, 1.0, -1.0).to(torch.float32)
+
+
+def costas_error(re: torch.Tensor, im: torch.Tensor, mode: int):
+    """Phase error of the mixed-down sample ``re + i*im``, clipped to
+    [-1, 1]; every product and sum rounded on its own, in the kernel's
+    order."""
+    if mode == COSTAS_ORDER2:
+        err = re * im
+    elif mode == COSTAS_ORDER4:
+        err = _sign(re) * im - _sign(im) * re
+    elif mode == COSTAS_ORDER8:
+        e_big = _sign(re) * im - _sign(im) * re * _K8
+        e_small = _sign(re) * im * _K8 - _sign(im) * re
+        err = torch.where(re.abs() >= im.abs(), e_big, e_small)
+    elif mode == COSTAS_BROKEN:
+        ang = torch.atan2(im, re)
+        dps = torch.stack([_wrap_pi(ang - _f32(p)) for p in BROKEN_PHASES])
+        first = dps.abs().argmin(dim=0, keepdim=True)  # first minimum
+        err = torch.gather(dps, 0, first)[0] * torch.hypot(re, im)
+    else:
+        raise ValueError(f"costas: unknown error mode {mode}")
+    return torch.clamp(err, -1.0, 1.0)
+
+
+def costas_scan_ref(x, phase0, freq0, alpha, beta, fmin, fmax, mode):
+    """Plain PyTorch version of `costas_scan`: the loop over time, all
+    rows at once.  ``x``: (rows, n) complex64; carries (rows,) float32."""
+    phase, freq = phase0.clone(), freq0.clone()
+    xr, xi = x.real.unbind(-1), x.imag.unbind(-1)
+    yr, yi = [], []
+    for i in range(x.shape[-1]):
+        neg = -phase
+        c, s = torch.cos(neg), torch.sin(neg)
+        re = xr[i] * c - xi[i] * s
+        im = xr[i] * s + xi[i] * c
+        err = costas_error(re, im, mode)
+        freq = torch.clamp(freq + beta * err, fmin, fmax)
+        phase = _wrap_pi(phase + freq + alpha * err)
+        yr.append(re)
+        yi.append(im)
+    if not yr:
+        return x.clone(), phase, freq
+    return (torch.complex(torch.stack(yr, -1), torch.stack(yi, -1)),
+            phase, freq)
+
+
+@functools.cache
+def _costas_launcher():
+    fn = _build.load("sync_loops").costas_scan_launch
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 2
+                   + [ctypes.c_float] * 4 + [ctypes.c_int]
+                   + [ctypes.c_float] * 4 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def costas_scan(x, phase0, freq0, alpha, beta, fmin, fmax, mode):
+    """Mixed-down samples and final (phase, freq) of the Costas loop.
+
+    ``x`` (rows, n) complex64; ``phase0``, ``freq0`` (rows,) float32; the
+    coefficients are float32 values; ``mode`` one of ``COSTAS_*``.  CPU
+    tensors: `costas_scan_ref`.  CUDA tensors: the kernel on the current
+    stream (``costas_scan.launches`` counts); no fallback.
+    """
+    if x.device.type == "cpu":
+        return costas_scan_ref(x, phase0, freq0, alpha, beta, fmin, fmax,
+                               mode)
+    _cuda_args("costas_scan", x, torch.complex64)
+    rows, n = x.shape
+    if phase0.shape != (rows,) or freq0.shape != (rows,):
+        raise ValueError("costas_scan: shapes disagree")
+    if mode not in (COSTAS_ORDER2, COSTAS_ORDER4, COSTAS_ORDER8,
+                    COSTAS_BROKEN):
+        raise ValueError(f"costas_scan: unknown error mode {mode}")
+    phase0 = phase0.to(torch.float32).contiguous()
+    freq0 = freq0.to(torch.float32).contiguous()
+    y = torch.empty_like(x)
+    phase, freq = torch.empty_like(phase0), torch.empty_like(freq0)
+    fn = _costas_launcher()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = fn(x.data_ptr(), y.data_ptr(), phase0.data_ptr(),
+                freq0.data_ptr(), phase.data_ptr(), freq.data_ptr(), rows, n,
+                alpha, beta, fmin, fmax, mode,
+                *(_f32(p) for p in BROKEN_PHASES), stream)
+    if rc != 0:
+        raise RuntimeError(f"costas_scan: CUDA launch failed (error {rc})")
+    costas_scan.launches += 1
+    return y, phase, freq
+
+
+costas_scan.launches = 0
+
+
 class _PhaseLoop(StreamOp):
     """Shared set-up of the second-order phase loops."""
 
@@ -266,43 +374,25 @@ class Pll(_PhaseLoop):
 
 class Costas(_PhaseLoop):
     """Costas loop of order 2/4/8: outputs ``x * exp(-i*phase)``; the
-    error function depends on the order.  The plain loop on any device."""
+    error function depends on the order.  One `costas_scan` launch per
+    call on a CUDA tensor, its plain loop on a CPU tensor."""
 
     def __init__(self, order: int, bandwidth: float, **kw):
         assert order in (2, 4, 8)
         super().__init__(bandwidth, **kw)
         self.order = order
-
-    def _error(self, v):
-        def step(t):
-            return torch.where(t > 0, 1.0, -1.0).to(torch.float32)
-
-        if self.order == 2:
-            err = v.real * v.imag
-        elif self.order == 4:
-            err = step(v.real) * v.imag - step(v.imag) * v.real
-        else:
-            K = _f32(np.sqrt(2.0) - 1.0)
-            e_big = step(v.real) * v.imag - step(v.imag) * v.real * K
-            e_small = step(v.real) * v.imag * K - step(v.imag) * v.real
-            err = torch.where(v.real.abs() >= v.imag.abs(), e_big, e_small)
-        return torch.clamp(err, -1.0, 1.0)
+        self.error_mode = {2: COSTAS_ORDER2, 4: COSTAS_ORDER4,
+                           8: COSTAS_ORDER8}[order]
 
     def __call__(self, state, x):
-        alpha, beta, fmin, fmax = self._coefficients()
         lead = x.shape[:-1]
-        phase, freq = (s.to(torch.float32).expand(lead).clone()
-                       for s in state)
-        x = x.to(torch.complex64)
-        y = torch.empty_like(x)
-        for i in range(x.shape[-1]):
-            out = x[..., i] * torch.complex(torch.cos(-phase),
-                                            torch.sin(-phase))
-            err = self._error(out)
-            freq = torch.clamp(freq + beta * err, fmin, fmax)
-            phase = _wrap_pi(phase + freq + alpha * err)
-            y[..., i] = out
-        return (phase, freq), y
+        n = x.shape[-1]
+        phase0, freq0 = (s.to(torch.float32).expand(lead).reshape(-1)
+                         for s in state)
+        y, phase, freq = costas_scan(
+            x.to(torch.complex64).reshape(-1, n).contiguous(), phase0, freq0,
+            *self._coefficients(), self.error_mode)
+        return (phase.reshape(lead), freq.reshape(lead)), y.reshape(x.shape)
 
 
 # -- block-parallel pilot trackers -------------------------------------
