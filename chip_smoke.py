@@ -9,7 +9,8 @@
 
 Phases, each fatal:
 
-1. device: a CUDA card is present; its name and power limit; TF32 off;
+1. device: a CUDA card is present; its name and power limit; PyTorch's
+   default flags (TF32 off);
 2. build: every hand-written kernel from ``sdrtpu_torch/csrc`` (nvcc,
    one process per source, started together);
 3. kernel check: each kernel against its plain PyTorch version on the
@@ -53,17 +54,41 @@ Phases, each fatal:
    and each kernel held against its plain version on that block's
    inputs;
 12. rds path: the RDS fixture through `BroadcastFm(pilot_mode="pll")`'s
-   tap, `RdsDemod` and `RdsDecoder`: PI 0xF00D, PS "SDRTPU  ".
+   tap, `RdsDemod` and `RdsDecoder`: PI 0xF00D, PS "SDRTPU  ";
+13. viterbi rates and mm_scan banks (run after the sync kernels):
+   viterbi_decode at rates 1/3 and 1/4 with K = 7 and 5, and mm_scan at
+   16 taps x 256 phases, 8 x 1024 and 32 x 1600 (past 48 KB of shared
+   memory), bit-equal to their plain versions on the card;
+14. tf32: TF32 turned on globally; the alias fold, the 317-tap pilot FIR
+   and the audio resampler at the flagship's shapes give the bits of the
+   default flags;
+15. dab path: 10 DAB mode-I frames (EN 300 401 at its published
+   parameters) after junk samples, AWGN 0.02: null search on the host,
+   the OFDM demodulator on the card, the FIC's four codewords as one
+   rate-1/4 viterbi_decode launch a frame; all 120 FIBs CRC-valid and
+   equal to those sent; the first frame against the CPU;
+16. falcon9 path: 64 RS frames of the Falcon 9 downlink at 6 Msps and
+   3.5714 Mbaud in blocks of 60 000 (float mm_scan a block), RS and
+   packets on the host; every frame, 0 RS failures, the packets sent;
+   the first block against the CPU;
+17. kg_sstv, m17 and ryfi paths: KG-STV at 4800 Hz (two frames), M17 at
+   48 kHz (an LSF and 16 stream frames, after examples/m17_voice.py's
+   alternating preamble and again after a random one), the RyFi link of
+   examples/ryfi_link.py (six frames): payloads, callsigns and frame
+   numbers those sent and the CPU's (RyFi: over its first 5 blocks);
+   the CPU run's plain Costas, M&M and Viterbi calls are launched again
+   as the kernels on the card and held.
 
 Around each path's run every kernel's launch count is set to 0 and read,
 and must be exact for all seven kernels (fft: chunk_poly 32; pallas:
-mix_decimate 256; receiver, pll, meteor and rds: see their phases; every
-other count 0); then the same port runs on the CPU, and the card's
-output is held against it.
+mix_decimate 256; receiver, pll, meteor, rds, dab, falcon9, kg_sstv,
+m17 and ryfi: see their phases; every other count 0); then the same port
+runs on the CPU, and the card's output is held against it.
 
 Standard output: the card line, the ``kernels`` JSON line, the fft
-flagship line, the pallas path line, the receiver, pll, ctcss, meteor and
-rds lines, and last ``{"ok": true, "device": {...}}``.
+flagship line, the pallas path line, the receiver, pll, ctcss, meteor,
+rds, tf32, dab, falcon9, kg_sstv, m17 and ryfi lines, and last
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -233,8 +258,8 @@ def device_ms(fn, reps: int, kernel: str | None = None) -> float:
 def phase_device() -> dict:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    # PyTorch's defaults; the port pins float32 in its contractions itself
+    # (`phase_tf32` turns TF32 on to show it)
     assert not torch.backends.cuda.matmul.allow_tf32
     assert torch.get_float32_matmul_precision() == "highest"
     card = card_line()
@@ -1320,6 +1345,53 @@ def held(name: str, got, want, where) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def recording(*names):
+    """While the ``with`` block runs, every call of the named kernel
+    wrappers (looked up by their modules at call time) records its
+    arguments and results: yields ``{name: [(args, out), ...]}``."""
+    from sdrtpu_torch.fec import viterbi as tv
+    from sdrtpu_torch.kernels import clock, loops
+
+    mods = {"costas_scan": loops, "mm_scan": clock, "viterbi_decode": tv}
+    saved = {name: getattr(mods[name], name) for name in names}
+    calls = {name: [] for name in names}
+
+    def recorder(name):
+        def record(*args):
+            out = saved[name](*args)
+            calls[name].append((args, out))
+            return out
+        return record
+
+    for name in names:
+        setattr(mods[name], name, recorder(name))
+    try:
+        yield calls
+    finally:
+        for name in names:
+            setattr(mods[name], name, saved[name])
+
+
+def hold_recorded(name: str, calls, where: str) -> dict:
+    """Each recorded plain-version call of ``name`` launched again as its
+    kernel on the card on the same inputs and held by `held`."""
+    from sdrtpu_torch.fec import viterbi as tv
+    from sdrtpu_torch.kernels import clock, loops
+
+    fn = {"costas_scan": loops.costas_scan, "mm_scan": clock.mm_scan,
+          "viterbi_decode": tv.viterbi_decode}[name]
+    if not calls:
+        raise AssertionError(f"{where}: the CPU run made no {name} call")
+    checks = [held(name, fn(*(a.cuda() if torch.is_tensor(a) else a
+                              for a in args)), out,
+                   f"{where}'s inputs {tuple(args[0].shape)}")
+              for args, out in calls]
+    return {"shapes": [list(args[0].shape) for args, _ in calls],
+            "max_abs_err": max(c["max_abs_err"] for c in checks),
+            "bit_equal": all(c["bit_equal"] for c in checks)}
+
+
 def phase_sync_kernels() -> list[dict]:
     """costas_scan, mm_scan and viterbi_decode against their plain
     PyTorch versions on the card, each timed beside the plain version.
@@ -1648,10 +1720,8 @@ def phase_meteor(card: str, profile_path: str | None = None) -> dict:
     import copy
 
     from sdrtpu_torch.decoders import ccsds
-    from sdrtpu_torch.fec import viterbi as tv
     from sdrtpu_torch.io.symbols import (SoftSymbolWriter, quantize_soft,
                                          read_soft_file)
-    from sdrtpu_torch.kernels import clock, loops
     from sdrtpu_torch.kernels.psk import MeteorDemod
 
     t0 = time.perf_counter()
@@ -1788,20 +1858,7 @@ def phase_meteor(card: str, profile_path: str | None = None) -> dict:
 
     # the port on the CPU over the first block, the plain versions'
     # inputs and outputs recorded
-    mods = {"costas_scan": loops, "mm_scan": clock, "viterbi_decode": tv}
-    saved = {name: getattr(m, name) for name, m in mods.items()}
-    recorded = {name: [] for name in mods}
-
-    def recorder(name):
-        def record(*args):
-            out = saved[name](*args)
-            recorded[name].append((args, out))
-            return out
-        return record
-
-    for name, m in mods.items():
-        setattr(m, name, recorder(name))
-    try:
+    with recording("costas_scan", "mm_scan", "viterbi_decode") as recorded:
         t0 = time.perf_counter()
         cpu_demod = MeteorDemod(device="cpu")
         with torch.inference_mode():  # less work per op in the plain loops
@@ -1810,9 +1867,6 @@ def phase_meteor(card: str, profile_path: str | None = None) -> dict:
             c = syms[valid]
             frames_cpu = ccsds.QpskAmbiguityResolver(device="cpu").process(c)
         cpu_s = time.perf_counter() - t0
-    finally:
-        for name, m in mods.items():
-            setattr(m, name, saved[name])
     g, c = times[0]["first_symbols"].cpu().numpy(), c.numpy()
     m = min(len(g), len(c))
     close = float(np.isclose(g[:m], c[:m], atol=METEOR_SYM_ATOL).mean())
@@ -1828,17 +1882,8 @@ def phase_meteor(card: str, profile_path: str | None = None) -> dict:
             f"for the card's {n0}")
     kernel_checks = {}
     for name, calls in recorded.items():
-        if not calls:
-            raise AssertionError(f"meteor: the CPU run made no {name} call")
         # each recorded call again, its kernel on the card
-        checks = [held(name, saved[name](*(
-            a.cuda() if torch.is_tensor(a) else a for a in args)), out,
-            f"the meteor path's inputs {tuple(args[0].shape)}")
-            for args, out in calls]
-        kernel_checks[name] = {
-            "shapes": [list(args[0].shape) for args, _ in calls],
-            "max_abs_err": max(c["max_abs_err"] for c in checks),
-            "bit_equal": all(c["bit_equal"] for c in checks)}
+        kernel_checks[name] = hold_recorded(name, calls, "the meteor path")
         log(f"meteor: {name} held on the path's inputs: "
             f"{kernel_checks[name]}")
 
@@ -1943,6 +1988,830 @@ def phase_rds(card: str) -> dict:
             "ms_per_block": wall * 1e3 / RDS_BLOCKS, "card": card}
 
 
+# -- Viterbi rates 1/3 and 1/4, wider M&M banks, fp32 pinned against TF32,
+# and the DAB, Falcon 9, KG-STV, M17 and RyFi chains
+
+DAB_FRAMES = 10           # 0.96 s of mode I, 1 966 080 samples
+DAB_JUNK = 5000           # samples ahead of the first null symbol
+DAB_NOISE = 0.02          # AWGN per component, as tests/test_dab.py
+DAB_EID, DAB_SID = 0xD1E5, 0xC0DE
+FALCON_FRAMES = 64        # RS frames, each with two packets
+FALCON_BLOCK = 60_000     # 10 ms at 6 Msps
+FALCON_NOISE = 0.05
+KG_FS = 4800.0            # tests/test_kg_sstv.py's rate, two frames
+KG_BLOCKS = 4
+M17_FS, M17_BAUD, M17_DEV = 48000.0, 4800.0, 2400.0  # examples/m17_voice.py
+M17_STREAM_FRAMES = 16
+M17_EXAMPLE_LOST = 1      # stream frames lost besides the LSF after the
+                          # example's alternating preamble (ROADMAP Queue 3)
+M17_BLOCK = 9600          # 200 ms at 48 kHz
+RYFI_BAUD, RYFI_SPS = 20000.0, 4   # examples/ryfi_link.py's defaults
+RYFI_ESN0_DB, RYFI_OFFSET_HZ, RYFI_PHASE = 8.0, 100.0, 0.7
+RYFI_BLOCK = 16384        # the receive loop's block, as the example
+RYFI_CPU_BLOCKS = 5       # the first idle frame and the first data frame
+
+
+def viterbi_row(sym, dec, reps: int = 20) -> dict:
+    """viterbi_decode at ``sym``'s shape: device ms (profiler), CUDA-event
+    ms, the plain version's wall ms on the card (held bit-equal), the
+    bound."""
+    from sdrtpu_torch.fec import viterbi as tv
+
+    args = (sym, dec.exp_prev, dec.prev, dec.prev_bit)
+    got = tv.viterbi_decode(*args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = tv.viterbi_decode_ref(*args)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    rows, n, R = sym.shape
+    out = {"shape": [rows, n], "K": dec.K, "R": R,
+           **held("viterbi_decode", got, want, f"{(rows, n, R, dec.K)}"),
+           "ms": device_ms(lambda: tv.viterbi_decode(*args), reps,
+                           "viterbi_kernel"),
+           "event_ms": cuda_ms(lambda: tv.viterbi_decode(*args), reps),
+           "plain_ms": plain_ms,
+           # soft symbols in, bits and metrics out; per step and state two
+           # branch metrics (R mul, R - 1 add), two adds, a compare, a
+           # select, a share of the max and the subtract
+           **roofline(rows * n * (4 * R + 1) + rows * dec.S * 4,
+                      rows * n * dec.S * (2 * (2 * R - 1) + 6))}
+    log(f"viterbi_decode {(rows, n, R, dec.K)}: {out}; reckoned serial "
+        f"chain {serial_chain_ms(n, (VITERBI_CHAIN[0] + 4 * (R - 2), 0)):.4f}"
+        " ms")
+    return out
+
+
+def phase_rates_and_banks() -> dict:
+    """viterbi_decode at R = 3 and 4 with K = 7 and 5, and mm_scan at the
+    wider banks (16 taps x 256 phases, 8 x 1024, 32 x 1600: above the
+    default 48 KB of shared memory), each against its plain version on
+    the card: bits and metrics equal (Viterbi), valid slots and offsets
+    equal with symbols within MM_REL_TOL of the peak (M&M; `held`).
+    Returns the rows for the kernels line."""
+    from sdrtpu_torch.fec import viterbi as tv
+    from sdrtpu_torch.kernels import clock
+
+    rng = np.random.default_rng(61)
+    dab = (0o133, 0o171, 0o145, 0o133)
+    vit = []
+    for K, polys, rows, n in [(7, dab, 1, 2000), (5, dab, 1, 2000),
+                              (7, dab[:3], 1, 2000), (5, dab[:3], 2, 1500)]:
+        enc = tv.ConvEncoder(K, polys)
+        dec = tv.ViterbiDecoder(K, polys, device="cuda")
+        soft = np.stack([enc.encode_to_soft(rng.integers(0, 2, n))
+                         for _ in range(rows)])
+        soft = soft + 0.8 * rng.standard_normal(soft.shape)
+        sym = torch.as_tensor(soft.astype(np.float32).reshape(
+            rows, n, len(polys)), device="cuda")
+        vit.append(viterbi_row(sym, dec))
+    mm = []
+    for cplx, n, taps, phases in [(True, 3000, 16, 256), (False, 3000, 16, 256),
+                                  (True, 3000, 8, 1024),
+                                  (False, 2000, 32, 1600)]:
+        omega = 25.0 / 12.0 if cplx else 5000.0 / 1187.5
+        m = clock.MuellerMuller(omega, 1e-6, 0.01, 0.01, complex_mode=cplx,
+                                interp_phase_count=phases,
+                                interp_tap_count=taps, device="cuda")
+        if cplx:
+            x = qpsk_rrc(rng, n * 12 // 25 + 1)[:n]
+        else:
+            x = bpsk_real(rng, int(n / omega) + 1, omega)[:n]
+        st = m.init_state()
+        ext = torch.cat([st["tail"], torch.as_tensor(
+            x.astype(np.complex64 if cplx else np.float32),
+            device="cuda")])[None].contiguous()
+        args = (ext, m._bank, n, m.max_out(n), st["offset"].reshape(1),
+                torch.stack([st["phase"], st["freq"], st["last_out"]])[None],
+                torch.stack([st[k] for k in ("p1", "p2", "c1", "c2")])[None],
+                float(np.float32(m.omega * (1 - m.omega_rel_limit))),
+                float(np.float32(m.omega * (1 + m.omega_rel_limit))),
+                float(np.float32(m.omega_gain)), float(np.float32(m.mu_gain)))
+        got = clock.mm_scan(*args)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = clock.mm_scan_ref(*args)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        item = 8 if cplx else 4
+        n_valid = int(got[1].sum().item())
+        row = {"shape": [1, n], "complex": cplx, "taps": taps,
+               "phases": phases, "bank_bytes": phases * taps * 4,
+               "symbols": n_valid,
+               **held("mm_scan", got, want, (cplx, n, taps, phases)),
+               "ms": device_ms(lambda: clock.mm_scan(*args), 20,
+                               "mm_scan_kernel"),
+               "plain_ms": plain_ms,
+               **roofline(item * (n + taps - 1) + (item + 1) * args[3]
+                          + phases * taps * 4,
+                          (2 * taps + 30) * n_valid)}
+        log(f"mm_scan wide bank {(cplx, n, taps, phases)}: {row}")
+        mm.append(row)
+        del ext, got, want
+    return {"viterbi_decode": vit, "mm_scan": mm}
+
+
+def phase_tf32(card: str) -> dict:
+    """With TF32 turned on globally (``set_float32_matmul_precision
+    ("high")``, ``cudnn.allow_tf32``) the port's pinned contractions at
+    the flagship's shapes give the bits they give with the default flags:
+    the alias fold of a 500 000-sample block (8 VFOs), the 317-tap pilot
+    FIR (banded-Toeplitz matmuls) over the 8 VFOs' IF block and the
+    24/125 audio resampler over their two audio planes.  The caller's
+    flags are set again afterwards."""
+    pipe, x_host = build_flagship("cuda")
+    fused = pipe.channelizer.fused
+    pilot = pipe.demod.pilot_fir
+    resamp = pipe.audio_resamp.resamp
+    assert pilot.method == "mm" and len(pilot.taps) == 317, (
+        pilot.method, len(pilot.taps))
+    rng = np.random.default_rng(32)
+    x = torch.as_tensor(x_host, device="cuda")
+    n_if = pipe.channelizer.out_len(pipe.block_len)
+    mpx = torch.as_tensor(rng.standard_normal((8, n_if)).astype(np.float32),
+                          device="cuda")
+    audio = torch.as_tensor(rng.standard_normal((2, 8, n_if)).astype(
+        np.float32), device="cuda")
+    fns = {
+        "alias fold (fft channelizer, 8 VFOs, 500 000 samples)":
+            lambda: fused(fused.init_state(), x)[1],
+        f"pilot FIR ({len(pilot.taps)} taps, 8 x {n_if})":
+            lambda: pilot(pilot.init_state(), mpx)[1],
+        f"audio resampler ({resamp.interp}/{resamp.decim}, 2 x 8 x {n_if})":
+            lambda: resamp(resamp.init_state(), audio)[1],
+    }
+    assert not torch.backends.cuda.matmul.allow_tf32
+    want = {k: fn() for k, fn in fns.items()}
+    saved = (torch.get_float32_matmul_precision(),
+             torch.backends.cudnn.allow_tf32)
+    try:
+        torch.set_float32_matmul_precision("high")
+        torch.backends.cudnn.allow_tf32 = True
+        got = {k: fn() for k, fn in fns.items()}
+        torch.cuda.synchronize()
+        still = (torch.get_float32_matmul_precision(),
+                 torch.backends.cudnn.allow_tf32)
+        a = mpx[:, :4096].contiguous()
+        unpinned = a @ a.T  # the same product outside the helper: TF32
+    finally:
+        torch.set_float32_matmul_precision(saved[0])
+        torch.backends.cudnn.allow_tf32 = saved[1]
+    if still != ("high", True):
+        raise AssertionError(f"tf32: the caller's flags became {still}")
+    differ = [k for k in fns if not torch.equal(got[k], want[k])]
+    if differ:
+        raise AssertionError(f"tf32: {differ} changed with TF32 on")
+    # the flags did reach cuBLAS: the same product outside the helper
+    # changed, else the phase tested nothing
+    if torch.equal(unpinned, a @ a.T):
+        raise AssertionError("tf32: the unpinned product did not change "
+                             "with TF32 on; the flags did not switch cuBLAS")
+    return {"tf32": "TF32 on globally; the port's contractions pinned to "
+                    "float32 give the default bits",
+            "held_bit_equal": list(fns),
+            "unpinned_matmul_changed": True,
+            "card": card}
+
+
+def _dab_fibs(frame: int) -> np.ndarray:
+    from sdrtpu_torch.decoders import dab
+
+    fibs = [dab.build_fib([dab.make_fig_0_0(DAB_EID, cif_count=frame),
+                           dab.make_fig_1_0(DAB_EID, "SDRTPU ENSEMBLE")]),
+            dab.build_fib([dab.make_fig_1_1(DAB_SID, "TPU RADIO 1")])]
+    fibs += [dab.build_fib([])] * (dab.FIBS_PER_FRAME - len(fibs))
+    return np.stack(fibs)
+
+
+def dab_capture(seed: int):
+    """DAB_FRAMES consecutive mode-I frames after DAB_JUNK samples of the
+    last frame's tail, a null symbol after them, AWGN.  Each frame's FIC
+    carries 12 FIBs (FIG 0/0 with the frame's CIF count, the ensemble
+    label, the service label); its MSC symbols are seeded random dibits.
+    Returns (fibs per frame, dibits per frame, complex64 samples)."""
+    from sdrtpu_torch.decoders import dab
+
+    rng = np.random.default_rng(seed)
+    mod = dab.DabModulator()
+    fibs, dibits, frames = [], [], []
+    for f in range(DAB_FRAMES):
+        fibs.append(_dab_fibs(f))
+        d = np.concatenate([mod.fic_to_symbols(fibs[-1]), rng.integers(
+            0, 4, (dab.NUM_SYMS - 1 - dab.FIC_SYMS, dab.CARRIERS))])
+        dibits.append(d)
+        frames.append(mod.modulate_frame(d))
+    x = np.concatenate([frames[-1][-DAB_JUNK:], *frames,
+                        np.zeros(dab.NULL, np.complex64)])
+    x = x + DAB_NOISE * (rng.standard_normal(x.size)
+                         + 1j * rng.standard_normal(x.size))
+    return fibs, dibits, x.astype(np.complex64)
+
+
+def phase_dab(card: str) -> dict:
+    """DAB transmission mode I (EN 300 401; 2.048 Msps, 2048-point FFT,
+    1536 carriers, 76 symbols, 2656-sample null) on the card: per frame
+    `find_null` on the host (over a window from 2 000 samples before the
+    expected start), `demod_frame` on the card (one batched FFT, the
+    carrier gather, the differential product, the slice), `decode_fic`
+    (depuncture on the card, the four codewords as the four rows of ONE
+    rate-1/4 K=7 `viterbi_decode` launch, CRC on the host).  Launches:
+    viterbi_decode one a frame, nothing else.  Then the port on the CPU
+    over the first frame: the same dibits and FIBs, its plain Viterbi's
+    inputs held against the kernel; the kernel timed at the frame's
+    shape; 3 frames again under the profiler for the busy share."""
+    from sdrtpu_torch.decoders import dab
+
+    t0 = time.perf_counter()
+    fibs_sent, dibits_sent, x = dab_capture(71)
+    capture_s = time.perf_counter() - t0
+    dem = dab.DabDemodulator(device="cuda")
+
+    def run(n_frames):
+        starts, out, ms = [], [], []
+        start = dem.find_null(x[:DAB_JUNK + dab.FRAME + dab.NULL])
+        for f in range(n_frames):
+            t0 = time.perf_counter()
+            if f:
+                lo = starts[-1] + dab.FRAME - 2000
+                start = lo + dem.find_null(x[lo:lo + 2000 + dab.FRAME
+                                             + dab.NULL])
+            frame = torch.as_tensor(x[start:start + dab.FRAME], device="cuda")
+            d = dem.demod_frame(frame)
+            fibs, ok = dem.decode_fic(d)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            starts.append(start)
+            out.append((d, fibs, ok))
+        return starts, out, ms
+
+    run(1)  # warm-up: cuFFT plan, kernel load
+    torch.cuda.synchronize()
+    counters = kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    starts, out, ms = run(DAB_FRAMES)
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    want = expected_launches(viterbi_decode=DAB_FRAMES)
+    if launches != want:
+        raise AssertionError(f"dab path launched {launches}, want {want}")
+    if starts != [DAB_JUNK + f * dab.FRAME for f in range(DAB_FRAMES)]:
+        raise AssertionError(f"dab: frames found at {starts}")
+    n_ok = sum(int(ok.sum()) for _, _, ok in out)
+    equal = sum(int((got == sent).all(axis=1).sum())
+                for (_, got, _), sent in zip(out, fibs_sent))
+    if n_ok != 12 * DAB_FRAMES or equal != 12 * DAB_FRAMES:
+        raise AssertionError(f"dab: {n_ok} FIBs pass CRC, {equal} equal, "
+                             f"of {12 * DAB_FRAMES}")
+    for f, (_, got, _) in enumerate(out):
+        figs = dab.parse_figs(got[0]) + dab.parse_figs(got[1])
+        if ({"type": (0, 0), "eid": DAB_EID, "change": 0, "cif_count": f}
+                not in figs
+                or [g["label"].strip() for g in figs if g["type"] == (1, 0)
+                    and g["eid"] == DAB_EID] != ["SDRTPU ENSEMBLE"]
+                or [g["label"].strip() for g in figs if g["type"] == (1, 1)
+                    and g["sid"] == DAB_SID] != ["TPU RADIO 1"]):
+            raise AssertionError(f"dab frame {f}: FIGs {figs}")
+    wrong = sum(int((d.cpu().numpy() != sent).sum())
+                for (d, _, _), sent in zip(out, dibits_sent))
+    # the port on the CPU over the first frame
+    with recording("viterbi_decode") as calls:
+        cpu = dab.DabDemodulator(device="cpu")
+        t0 = time.perf_counter()
+        d_cpu = cpu.demod_frame(x[DAB_JUNK:DAB_JUNK + dab.FRAME])
+        fibs_cpu, ok_cpu = cpu.decode_fic(d_cpu)
+        cpu_s = time.perf_counter() - t0
+    if not (torch.equal(d_cpu, out[0][0].cpu())
+            and np.array_equal(fibs_cpu, out[0][1]) and ok_cpu.all()):
+        raise AssertionError("dab: the card's first frame differs from the "
+                             "CPU's")
+    check = hold_recorded("viterbi_decode", calls["viterbi_decode"],
+                          "the dab path")
+    args = calls["viterbi_decode"][0][0]
+    path_row = viterbi_row(args[0].cuda(), dem.viterbi)
+    with SmClocks() as clocks:
+        prof, p_wall, busy_us = profiled(lambda: run(3))
+    on_path = kernel_ms_per_launch(prof, ("viterbi_kernel", "fft"))
+    ms_frame = float(np.median(ms))
+    return {
+        "dab": "DAB mode I (EN 300 401): 2.048 Msps, 2048-point FFT, 1536 "
+               "carriers, 76 symbols, 2656-sample null; FIC rate-1/4 K=7 "
+               f"punctured; {DAB_FRAMES} frames after {DAB_JUNK} junk "
+               f"samples, AWGN {DAB_NOISE}",
+        "frames": DAB_FRAMES, "samples": int(x.size),
+        "frame_starts_ok": True, "fibs_crc_ok": n_ok, "fibs_equal": equal,
+        "msc_dibits_wrong": wrong, "kernel_launches": launches,
+        "viterbi_launch_shape": path_row["shape"] + [4],
+        "ms_per_frame": ms, "median_ms_per_frame": ms_frame,
+        "real_time_factor": 96.0 / ms_frame,
+        "wall_s": wall,
+        "device_busy_share": busy_us / 1e3 / (p_wall * 1e3),
+        "device_busy_ms_per_frame": busy_us / 1e3 / 3,
+        "kernel_ms_on_path": on_path,
+        "sm_clock_mhz": clocks.summary(),
+        "card_vs_cpu": {"frame": 0, "dibits_equal": True,
+                        "fibs_equal": True, "cpu_seconds": cpu_s},
+        "kernel_check": check, "viterbi_at_path_shape": path_row,
+        "capture_seconds": capture_s, "card": card,
+    }
+
+
+def falcon_capture(seed: int):
+    """FALCON_FRAMES RS frames of the Falcon 9 downlink at the published
+    rates (6 Msps, 2 MHz deviation, 3.5714 Mbaud, sps 1.68): each frame
+    a 4-byte header (counter, pointer 0) and two packets, a telemetry
+    packet and a GPS text packet, ASM-framed and NRZ; the FM phase
+    accumulated sample by sample at t = k / fs; AWGN.  Padded to whole
+    blocks.  Returns (packets sent, complex64 samples)."""
+    from sdrtpu_torch.decoders import falcon9 as f9
+
+    rng = np.random.default_rng(seed)
+
+    def packet(pkt_id, payload):
+        n = 10 + len(payload)
+        return bytes([((n - 2) >> 8) & 0x0F, (n - 2) & 0xFF]
+                     ) + pkt_id.to_bytes(8, "big") + payload
+
+    sent, bits = [], [rng.integers(0, 2, 400).astype(np.uint8)]
+    for i in range(FALCON_FRAMES):
+        tlm = b"TLM %04d " % i + bytes(rng.integers(0, 256, 300,
+                                                    dtype=np.uint8))
+        gps = b"GPS WEEK 2300 FRAME %04d" % i
+        body = packet(f9.PKT_TLM, tlm) + packet(f9.PKT_GPS_TEXT[0], gps)
+        sent += [(f9.PKT_TLM, tlm), (f9.PKT_GPS_TEXT[0], gps)]
+        counter = 1000 + i
+        hdr = bytes([(counter >> 13) & 0x3F, (counter >> 5) & 0xFF,
+                     (counter & 0x1F) << 3, 0])
+        data = np.frombuffer(hdr + body.ljust(f9.FRAME_DATA_LEN, b"\0"),
+                             np.uint8)
+        fbits = np.unpackbits(f9.rs_frame_encode(data))
+        bits += [f9._ASM_PATTERN, fbits,
+                 np.zeros(f9.FRAME_BITS - fbits.size, np.uint8)]
+    bits.append(rng.integers(0, 2, 2000).astype(np.uint8))
+    nrz = 2.0 * np.concatenate(bits) - 1.0
+    n = int(len(nrz) * f9.SAMPLERATE / f9.BAUDRATE)
+    n = -(-n // FALCON_BLOCK) * FALCON_BLOCK
+    k = np.arange(n)
+    sym = nrz[np.minimum((k * f9.BAUDRATE / f9.SAMPLERATE).astype(np.int64),
+                         len(nrz) - 1)]
+    x = np.exp(1j * np.cumsum(2 * np.pi * f9.DEVIATION / f9.SAMPLERATE * sym))
+    x = x + FALCON_NOISE * (rng.standard_normal(n)
+                            + 1j * rng.standard_normal(n))
+    return sent, x.astype(np.complex64)
+
+
+def phase_falcon9(card: str) -> dict:
+    """The Falcon 9 telemetry downlink at its published rates
+    (`Falcon9Decoder` defaults) on the card: per block `FalconDemod`
+    (`Quadrature`, float M&M: one mm_scan launch) and the sliced bits to
+    the host, then the ASM search, the dual-basis RS and the packets on
+    the host; the host clock splits each block into the card wait
+    (enqueue, M&M, bits' copy) and the RS decode.  Every frame seen, 0
+    RS failures, the packets those sent; the port on the CPU over the
+    first block gives the same packets, and its plain M&M's inputs are
+    held against the kernel, which is timed at that block's shape."""
+    from sdrtpu_torch.decoders import falcon9 as f9
+    from sdrtpu_torch.kernels import clock
+
+    t0 = time.perf_counter()
+    sent, x = falcon_capture(72)
+    capture_s = time.perf_counter() - t0
+    blocks = x.size // FALCON_BLOCK
+    rs_ms = [0.0]
+    rs_decode = f9.rs_frame_decode
+
+    def timed_rs(*a):
+        t0 = time.perf_counter()
+        try:
+            return rs_decode(*a)
+        finally:
+            rs_ms[0] += (time.perf_counter() - t0) * 1e3
+
+    def run(dec, first, last, times=None):
+        pk = []
+        for b in range(first, last):
+            rs_ms[0] = 0.0
+            t0 = time.perf_counter()
+            bits = dec.bits(x[b * FALCON_BLOCK:(b + 1) * FALCON_BLOCK])
+            t1 = time.perf_counter()
+            pk += dec.packets(bits)
+            t2 = time.perf_counter()
+            if times is not None:
+                times.append({"ms": (t2 - t0) * 1e3,
+                              "card_wait_ms": (t1 - t0) * 1e3,
+                              "rs_decode_ms": rs_ms[0],
+                              "host_other_ms": (t2 - t1) * 1e3 - rs_ms[0]})
+        return pk
+
+    run(f9.Falcon9Decoder(device="cuda"), 0, 1)  # warm-up
+    torch.cuda.synchronize()
+    counters = kernel_counters()
+    dec = f9.Falcon9Decoder(device="cuda")
+    f9.rs_frame_decode = timed_rs
+    try:
+        for fn in counters.values():
+            fn.launches = 0
+        times = []
+        pk = run(dec, 0, blocks, times)
+        launches = {name: fn.launches for name, fn in counters.items()}
+    finally:
+        f9.rs_frame_decode = rs_decode
+    want = expected_launches(mm_scan=blocks)
+    if launches != want:
+        raise AssertionError(f"falcon9 path launched {launches}, want {want}")
+    got = [(p.pkt_id, p.payload) for p in pk]
+    if (dec.deframer.frames_seen != FALCON_FRAMES or dec.rs_failures
+            or got != sent):
+        raise AssertionError(
+            f"falcon9: {dec.deframer.frames_seen} frames of {FALCON_FRAMES},"
+            f" {dec.rs_failures} RS failures, {len(got)} packets of "
+            f"{len(sent)}, equal {got == sent}")
+    first = len(run(f9.Falcon9Decoder(device="cuda"), 0, 1))
+    with recording("mm_scan") as calls:
+        t0 = time.perf_counter()
+        pk_cpu = run(f9.Falcon9Decoder(device="cpu"), 0, 1)
+        cpu_s = time.perf_counter() - t0
+    if [(p.pkt_id, p.payload) for p in pk_cpu] != got[:first]:
+        raise AssertionError("falcon9: the CPU's first block differs")
+    check = hold_recorded("mm_scan", calls["mm_scan"], "the falcon9 path")
+    args = tuple(a.cuda() if torch.is_tensor(a) else a
+                 for a in calls["mm_scan"][0][0])
+    n_valid = int(calls["mm_scan"][0][1][1].sum())
+    with SmClocks() as clocks:
+        # 20 launches: a trace of 5 has held none of them (PERF.md §7)
+        mm_ms = device_ms(lambda: clock.mm_scan(*args), 20, "mm_scan_kernel")
+        mm_event_ms = cuda_ms(lambda: clock.mm_scan(*args), 20)
+    path_row = {"shape": list(args[0].shape), "complex": False,
+                "symbols": n_valid, "ms": mm_ms, "event_ms": mm_event_ms,
+                "ns_per_symbol": mm_ms * 1e6 / n_valid,
+                "plain_cpu_ms": cpu_s * 1e3, "sm_clock_mhz": clocks.summary(),
+                **roofline(4 * args[0].shape[1] + 5 * args[3] + 4096,
+                           46 * n_valid)}
+    log(f"mm_scan at the falcon9 block: {path_row}; reckoned serial chain "
+        f"{serial_chain_ms(n_valid, MM_CHAIN):.4f} ms")
+    dec_p = f9.Falcon9Decoder(device="cuda")
+    prof, p_wall, busy_us = profiled(lambda: run(dec_p, 0, 2))
+    on_path = kernel_ms_per_launch(prof, ("mm_scan_kernel",))
+    total_s = sum(t["ms"] for t in times) / 1e3
+    signal_s = x.size / f9.SAMPLERATE
+    split = ("card_wait_ms", "rs_decode_ms", "host_other_ms")
+    return {
+        "falcon9": "Falcon 9 downlink (falcon9_decoder/src/main.cpp): 6 Msps,"
+                   " 2 MHz deviation, 3.5714 Mbaud, ASM 0x1ACFFC1D, "
+                   "RS(255,239) x 5 dual basis; "
+                   f"{FALCON_FRAMES} frames, {blocks} blocks of "
+                   f"{FALCON_BLOCK}, AWGN {FALCON_NOISE}",
+        "frames_sent": FALCON_FRAMES, "frames": dec.deframer.frames_seen,
+        "rs_failures": dec.rs_failures, "packets": len(got),
+        "packets_equal": True, "kernel_launches": launches,
+        "ms_per_block": [t["ms"] for t in times],
+        "median_ms_per_block": float(np.median([t["ms"] for t in times])),
+        "real_time_factor": signal_s / total_s,
+        "split_ms_per_block": {k: float(np.median([t[k] for t in times]))
+                               for k in split},
+        "rs_ms_per_frame": sum(t["rs_decode_ms"] for t in times)
+        / FALCON_FRAMES,
+        "device_busy_share": busy_us / 1e3 / (p_wall * 1e3),
+        "kernel_ms_on_path": on_path,
+        "card_vs_cpu": {"block": 0, "packets_equal": True,
+                        "cpu_seconds": cpu_s},
+        "kernel_check": check, "mm_scan_at_path_shape": path_row,
+        "capture_seconds": capture_s, "card": card,
+    }
+
+
+def phase_kg_sstv(card: str) -> dict:
+    """KG-STV at tests/test_kg_sstv.py's 4800 Hz with its two frames, from
+    the port's modulators: `KgSstvDecoder` on the card in KG_BLOCKS
+    blocks (one mm_scan a block, one viterbi_decode a frame), then on
+    the CPU: the payloads those sent and the CPU's; the CPU's plain M&M
+    and Viterbi calls launched again as the kernels on the card and
+    held."""
+    from sdrtpu_torch.decoders import kg_sstv as kg
+    from sdrtpu_torch.kernels import mod
+
+    rng = np.random.default_rng(73)
+    payloads = [bytes(rng.integers(0, 256, 6, dtype=np.uint8))
+                for _ in range(2)]
+    pre = (rng.integers(0, 2, 120) * 2.0 - 1.0).astype(np.float32)
+    syms = np.concatenate([pre] + [kg.encode_frame(p) for p in payloads]
+                          + [pre[:60]])
+    interp = mod.RrcInterpolator(int(KG_FS / kg.BAUDRATE), 31, kg.RRC_ALPHA,
+                                 dtype=torch.float32, device="cuda")
+    fm = mod.QuadratureMod(kg.DEVIATION, KG_FS, device="cuda")
+    _, x = fm(fm.init_state(), interp(interp.init_state(),
+                                      torch.as_tensor(syms, device="cuda"))[1])
+    x = x.cpu().numpy()
+    chunks = np.array_split(x, KG_BLOCKS)
+    counters = kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    dec = kg.KgSstvDecoder(KG_FS, device="cuda")
+    t0 = time.perf_counter()
+    got = sum((dec.process(c) for c in chunks), [])
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    want = expected_launches(mm_scan=KG_BLOCKS, viterbi_decode=len(payloads))
+    with recording("mm_scan", "viterbi_decode") as calls:
+        cpu = kg.KgSstvDecoder(KG_FS, device="cpu")
+        got_cpu = sum((cpu.process(c) for c in chunks), [])
+    if launches != want or got != payloads or got_cpu != payloads:
+        raise AssertionError(f"kg_sstv: launched {launches} (want {want}),"
+                             f" card {got}, CPU {got_cpu}, sent {payloads}")
+    checks = {name: hold_recorded(name, calls[name], "the kg_sstv path")
+              for name in ("mm_scan", "viterbi_decode")}
+    dec_p = kg.KgSstvDecoder(KG_FS, device="cuda")
+    prof, p_wall, busy_us = profiled(
+        lambda: [dec_p.process(c) for c in chunks])
+    on_path = kernel_ms_per_launch(prof, ("mm_scan_kernel", "viterbi_kernel"))
+    return {"kg_sstv": f"KG-STV 1200 baud at {KG_FS:.0f} Hz, two frames, "
+                       f"{KG_BLOCKS} blocks",
+            "frames": len(got), "payloads_equal": True, "cpu_equal": True,
+            "kernel_launches": launches, "kernel_checks": checks,
+            "ms_per_block": wall * 1e3 / KG_BLOCKS,
+            "real_time_factor": x.size / KG_FS / wall,
+            "device_busy_share": busy_us / 1e3 / (p_wall * 1e3),
+            "kernel_ms_on_path": on_path,
+            "card": card}
+
+
+def m17_capture(seed: int, preamble: str):
+    """examples/m17_voice.py's synthesis at 48 kHz, 4800 baud, 2400 Hz
+    deviation, its GFSK (RRC 41 taps, beta 0.5): a 480-dibit preamble,
+    an LSF and M17_STREAM_FRAMES stream frames whose LICH chunks carry
+    the LSF.  ``preamble``: "example", the example's alternating +3/-3
+    (what transmitters send), or "random", seeded random dibits.  The
+    voice bits are codec2 frames of the example's tone program when
+    libcodec2 is present, else seeded random bits.  Returns (voice bits
+    per frame, codec2 bytes or None, complex64 samples padded to whole
+    blocks)."""
+    from sdrtpu_torch.decoders import codec2, m17
+    from sdrtpu_torch.kernels.mod import GfskMod
+
+    rng = np.random.default_rng(seed)
+    c2 = None
+    if codec2.Codec2.available():
+        t = np.arange(M17_STREAM_FRAMES * 320) / 8000.0
+        prog = (5000 * np.sin(2 * np.pi * 250 * t)
+                * (0.6 + 0.4 * np.sin(2 * np.pi * 3 * t))).astype(np.int16)
+        c2 = codec2.Codec2(codec2.MODE_3200).encode(prog)
+        voices = [np.unpackbits(np.frombuffer(c2[i * 16:(i + 1) * 16],
+                                              np.uint8))
+                  for i in range(M17_STREAM_FRAMES)]
+    else:
+        voices = [rng.integers(0, 2, 128).astype(np.uint8)
+                  for _ in range(M17_STREAM_FRAMES)]
+    lsf = m17.lsf_content_bits("N0CALL", "SP5WWP")
+    frames = [m17.encode_lsf_frame("N0CALL", "SP5WWP")] + [
+        m17.encode_stream_frame(fn, voices[fn], lich_chunk=lsf[
+            (fn % 6) * 40:(fn % 6 + 1) * 40], chunk_idx=fn % 6)
+        for fn in range(M17_STREAM_FRAMES)]
+    pre = (np.tile(np.array([0, 1, 1, 1], np.uint8), 240)
+           if preamble == "example"
+           else rng.integers(0, 2, 960).astype(np.uint8))
+    bits = np.concatenate([pre] + frames + [np.zeros(96, np.uint8)])
+    table = {(0, 1): 1.0, (0, 0): 1 / 3, (1, 0): -1 / 3, (1, 1): -1.0}
+    syms = np.array([table[(int(a), int(b))] for a, b in bits.reshape(-1, 2)],
+                    np.float32)
+    sps = int(M17_FS / M17_BAUD)
+    gm = GfskMod(sps, M17_DEV, M17_FS, rrc_tap_count=4 * sps + 1,
+                 rrc_beta=0.5, device="cuda")
+    x = gm(gm.init_state(), torch.as_tensor(syms, device="cuda"))[1]
+    x = x.cpu().numpy()
+    pad = -x.size % M17_BLOCK
+    return voices, c2, np.concatenate([x, np.zeros(pad, np.complex64)])
+
+
+def m17_receive(x, device):
+    """examples/m17_voice.py's receive chain, block by block: `Gfsk`
+    (omega gain 1e-4, mu gain 0.08), the 4FSK slicer and `M17BitSync`."""
+    from sdrtpu_torch.decoders import m17
+    from sdrtpu_torch.kernels.psk import Gfsk
+
+    sps = int(M17_FS / M17_BAUD)
+    dem = Gfsk(M17_BAUD, M17_FS, M17_DEV, rrc_tap_count=4 * sps + 1,
+               rrc_beta=0.5, omega_gain=1e-4, mu_gain=0.08, device=device)
+    sync = m17.M17BitSync(device=device)
+    st, out = dem.init_state(), []
+    with torch.inference_mode():
+        for b in range(x.size // M17_BLOCK):
+            st, (s, v) = dem(st, torch.as_tensor(
+                x[b * M17_BLOCK:(b + 1) * M17_BLOCK], device=device))
+            out += sync.process(m17.slice_4fsk(s[v].cpu().numpy()))
+    return out, sync
+
+
+def phase_m17(card: str) -> dict:
+    """M17 voice at 48 kHz: `Gfsk` on the card (one mm_scan a block), the
+    frame layer on the host with its K=5 rate-1/2 Viterbi on the card
+    (one viterbi_decode a frame decoded).  Two transmissions:
+
+    - "example", examples/m17_voice.py's own (the alternating preamble):
+      the M&M's timing error is zero on an alternating pattern, so it
+      acquires only from the LSF on, and the LSF and stream frame 0 are
+      lost, in the reference too (ROADMAP Queue 3).  What the example
+      holds: every later stream frame's number and voice bits, and the
+      LSF's callsigns from the LICH chunks; with libcodec2, the voice
+      decoded to 8 kHz audio;
+    - "random", a random-dibit preamble: the LSF itself and all stream
+      frames, and the LSF again from the LICH chunks.
+
+    Each equal to what was sent and to the port on the CPU, whose plain
+    M&M and Viterbi calls are launched again as the kernels on the card
+    and held."""
+    from sdrtpu_torch.decoders import m17
+
+    def flat(rs):
+        return [(t, p if t == "lsf" else (p[0], p[1].tolist()))
+                for t, p in rs]
+
+    def run(preamble):
+        voices, c2, x = m17_capture(74, preamble)
+        blocks = x.size // M17_BLOCK
+        has_lsf = preamble == "random"
+        lost = 0 if has_lsf else M17_EXAMPLE_LOST  # stream frames lost
+        counters = kernel_counters()
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        res, sync = m17_receive(x, "cuda")
+        wall = time.perf_counter() - t0
+        launches = {name: fn.launches for name, fn in counters.items()}
+        want = expected_launches(mm_scan=blocks,
+                                 viterbi_decode=has_lsf + M17_STREAM_FRAMES
+                                 - lost)
+        with recording("mm_scan", "viterbi_decode") as calls:
+            res_cpu, sync_cpu = m17_receive(x, "cpu")
+        lsf = res[0][1] if res and res[0][0] == "lsf" else None
+        lich = sync.decoder.lsf_from_lich()
+        frames = [(t, (p[0], p[1].tolist())) for t, p in res
+                  if t == "stream"]
+        ok = (launches == want and flat(res) == flat(res_cpu)
+              and lich == sync_cpu.decoder.lsf_from_lich()
+              and lich is not None and lich["crc_ok"]
+              and (lich["dst"], lich["src"]) == ("N0CALL", "SP5WWP")
+              and [t for t, _ in res] == ["lsf"] * has_lsf
+              + ["stream"] * len(frames)
+              and (lsf is None or lsf == lich)
+              and frames == [("stream", (fn, voices[fn].tolist()))
+                             for fn in range(lost, M17_STREAM_FRAMES)])
+        if not ok:
+            raise AssertionError(
+                f"m17 ({preamble} preamble): launched {launches} (want "
+                f"{want}), {[(t, p if t == 'lsf' else p[0]) for t, p in res]},"
+                f" LICH {lich}, CPU equal {flat(res) == flat(res_cpu)}")
+        checks = {name: hold_recorded(name, calls[name],
+                                      f"the m17 path ({preamble})")
+                  for name in ("mm_scan", "viterbi_decode")}
+        audio = None
+        if c2 is not None and preamble == "example":
+            pcm = m17.M17Vocoder().vocode([p for t, p in res
+                                           if t == "stream"])
+            if pcm.size != len(frames) * 320:
+                raise AssertionError(f"m17: {pcm.size} audio samples")
+            audio = {"samples": int(pcm.size),
+                     "rms": float(np.sqrt(np.mean(pcm ** 2)))}
+        return x, blocks, {
+            "lsf_frame": {k: lsf[k] for k in ("dst", "src", "crc_ok")}
+            if lsf else "lost",
+            "lsf_from_lich": {k: lich[k] for k in ("dst", "src", "crc_ok")},
+            "stream_frames": [frames[0][1][0], frames[-1][1][0]],
+            "voice_bits_equal": True, "cpu_equal": True,
+            "vocoder": audio or ("libcodec2 absent: not run"
+                                 if c2 is None else "not run"),
+            "kernel_launches": launches, "kernel_checks": checks,
+            "ms_per_block": wall * 1e3 / blocks,
+            "real_time_factor": x.size / M17_FS / wall}
+
+    x, blocks, example = run("example")
+    _, _, random_pre = run("random")
+    prof, p_wall, busy_us = profiled(lambda: m17_receive(x, "cuda"))
+    on_path = kernel_ms_per_launch(prof, ("mm_scan_kernel", "viterbi_kernel"))
+    return {"m17": "M17 at 48 kHz, 4800 baud, 2400 Hz deviation "
+                   "(examples/m17_voice.py): LSF + "
+                   f"{M17_STREAM_FRAMES} stream frames, {blocks} blocks "
+                   f"of {M17_BLOCK}; the example's preamble, then a "
+                   "random one",
+            **example, "random_preamble": random_pre,
+            "device_busy_share": busy_us / 1e3 / (p_wall * 1e3),
+            "kernel_ms_on_path": on_path,
+            "card": card}
+
+
+def phase_ryfi(card: str) -> dict:
+    """The RyFi link of examples/ryfi_link.py at its defaults (20 kbaud,
+    4 samples a symbol, Es/N0 8 dB, 100 Hz offset, 0.7 rad): an idle
+    frame, three sends (the example's three packets, one of 1 500 bytes
+    spanning two frames), an idle frame, then one block of noise; the
+    port's transmitter; `RyfiReceiver` on the card in blocks of 16 384
+    (`Psk`: one costas_scan and one mm_scan a block; one viterbi_decode
+    a deframed frame, counted at the codec).  Every frame sent is
+    deframed; the packets are those sent; every frame after the first
+    decodes (the loops lock during the first idle frame, which may fail
+    its RS decode).  Then the receiver on the CPU over the first
+    RYFI_CPU_BLOCKS blocks (the first idle frame and the first data
+    frame): the same packets and frame counts as the card's over those
+    blocks, and its plain Costas, M&M and Viterbi calls launched again
+    as the kernels on the card and held."""
+    from sdrtpu_torch.decoders import ryfi
+
+    rng = np.random.default_rng(75)
+    fs = RYFI_BAUD * RYFI_SPS
+    payloads = [b"hello over the air",
+                bytes(rng.integers(0, 256, 1500).astype(np.uint8)),
+                b"last packet"]
+    tx = ryfi.RyfiTransmitter(RYFI_BAUD, fs, device="cuda")
+    parts = [tx.idle()] + [tx.send([p]) for p in payloads] + [tx.idle()]
+    n_frames = sum(p.size for p in parts) // (ryfi.TOTAL_FRAME_SYMS
+                                              * RYFI_SPS)
+    bb = np.concatenate(parts)
+    es = np.mean(np.abs(bb) ** 2) * RYFI_SPS
+    sigma = np.sqrt(es / 10 ** (RYFI_ESN0_DB / 10) / 2)
+    bb = np.concatenate([bb, np.zeros(RYFI_BLOCK, np.complex64)])
+    t = np.arange(bb.size) / fs
+    y = (bb * np.exp(1j * (RYFI_PHASE + 2 * np.pi * RYFI_OFFSET_HZ * t))
+         + sigma * (rng.standard_normal(bb.size)
+                    + 1j * rng.standard_normal(bb.size))).astype(np.complex64)
+    blocks = y.size // RYFI_BLOCK
+
+    def counted(rx):
+        """Count the frames the deframer hands the codec."""
+        deframed = [0]
+        decode_soft = rx.codec.decode_soft
+
+        def count(soft):
+            deframed[0] += 1
+            return decode_soft(soft)
+
+        rx.codec.decode_soft = count
+        return deframed
+
+    counters = kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    rx = ryfi.RyfiReceiver(RYFI_BAUD, fs, device="cuda")
+    deframed = counted(rx)
+    t0 = time.perf_counter()
+    got, per_block = [], []
+    for b in range(blocks):
+        got.append(rx.process(y[b * RYFI_BLOCK:(b + 1) * RYFI_BLOCK]))
+        per_block.append((rx.frames_decoded, rx.frames_failed))
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    want = expected_launches(costas_scan=blocks, mm_scan=blocks,
+                             viterbi_decode=n_frames)
+    if (launches != want or sum(got, []) != payloads
+            or deframed[0] != n_frames
+            or rx.frames_decoded + rx.frames_failed != n_frames
+            or rx.frames_decoded < n_frames - 1):
+        raise AssertionError(
+            f"ryfi: launched {launches} (want {want}), {deframed[0]} frames"
+            f" deframed, {rx.frames_decoded} decoded, {rx.frames_failed} "
+            f"failed of {n_frames}, packets equal {sum(got, []) == payloads}")
+    with recording("costas_scan", "mm_scan", "viterbi_decode") as calls:
+        cpu = ryfi.RyfiReceiver(RYFI_BAUD, fs, device="cpu")
+        t0 = time.perf_counter()
+        got_cpu = sum((cpu.process(y[b * RYFI_BLOCK:(b + 1) * RYFI_BLOCK])
+                       for b in range(RYFI_CPU_BLOCKS)), [])
+        cpu_s = time.perf_counter() - t0
+    card_first = sum(got[:RYFI_CPU_BLOCKS], [])
+    if (got_cpu != card_first or not got_cpu
+            or (cpu.frames_decoded, cpu.frames_failed)
+            != per_block[RYFI_CPU_BLOCKS - 1]):
+        raise AssertionError(
+            f"ryfi: over the first {RYFI_CPU_BLOCKS} blocks the CPU gave "
+            f"{len(got_cpu)} packets and (decoded, failed) "
+            f"{(cpu.frames_decoded, cpu.frames_failed)}, the card "
+            f"{len(card_first)} and {per_block[RYFI_CPU_BLOCKS - 1]}")
+    checks = {name: hold_recorded(name, calls[name], "the ryfi path")
+              for name in ("costas_scan", "mm_scan", "viterbi_decode")}
+    rx_p = ryfi.RyfiReceiver(RYFI_BAUD, fs, device="cuda")
+    prof, p_wall, busy_us = profiled(
+        lambda: [rx_p.process(y[b * RYFI_BLOCK:(b + 1) * RYFI_BLOCK])
+                 for b in range(4)])
+    on_path = kernel_ms_per_launch(
+        prof, ("costas_scan_kernel", "mm_scan_kernel", "viterbi_kernel"))
+    return {"ryfi": "RyFi QPSK (examples/ryfi_link.py defaults): "
+                    f"{RYFI_BAUD:.0f} baud, sps {RYFI_SPS}, Es/N0 "
+                    f"{RYFI_ESN0_DB} dB, {RYFI_OFFSET_HZ} Hz, {RYFI_PHASE} "
+                    f"rad; {n_frames} frames, {blocks} blocks of "
+                    f"{RYFI_BLOCK}",
+            "frames_sent": n_frames, "frames_deframed": deframed[0],
+            "frames_decoded": rx.frames_decoded,
+            "frames_failed": rx.frames_failed,
+            "rs_errors": rx.rs_errors, "packets_equal": True,
+            "kernel_launches": launches, "kernel_checks": checks,
+            "card_vs_cpu": {"blocks": RYFI_CPU_BLOCKS,
+                            "packets_equal": True,
+                            "frame_counts_equal": True,
+                            "cpu_seconds": cpu_s},
+            "ms_per_block": wall * 1e3 / blocks,
+            "real_time_factor": y.size / fs / wall,
+            "device_busy_share": busy_us / 1e3 / (p_wall * 1e3),
+            "kernel_ms_on_path": on_path,
+            "card": card}
+
+
 def main(argv) -> int:
     t_start = time.perf_counter()
 
@@ -1963,6 +2832,8 @@ def main(argv) -> int:
     done("seq loops")
     kernels += phase_sync_kernels()
     done("sync kernels")
+    wider = phase_rates_and_banks()
+    done("viterbi rates and mm_scan banks")
     profile_path = (argv[argv.index("--profile") + 1]
                     if "--profile" in argv else None)
     paths = {}
@@ -1991,6 +2862,13 @@ def main(argv) -> int:
     done("meteor path")
     paths["rds"] = phase_rds(dev["card"])
     done("rds path")
+    paths["tf32"] = phase_tf32(dev["card"])
+    done("tf32")
+    for name, phase in (("dab", phase_dab), ("falcon9", phase_falcon9),
+                        ("kg_sstv", phase_kg_sstv), ("m17", phase_m17),
+                        ("ryfi", phase_ryfi)):
+        paths[name] = phase(dev["card"])
+        done(f"{name} path")
     for k in kernels:
         if k["name"] in ("costas_scan", "mm_scan", "viterbi_decode"):
             k["launches"] = paths["meteor"]["kernel_launches"][k["name"]]
@@ -1999,6 +2877,33 @@ def main(argv) -> int:
             k["max_abs_err"] = max(k["max_abs_err"], check["max_abs_err"])
             k["rds_path_launches"] = paths["rds"]["kernel_launches"][
                 k["name"]]
+        if k["name"] in ("costas_scan", "mm_scan", "viterbi_decode"):
+            for name in ("dab", "falcon9", "kg_sstv", "m17", "ryfi"):
+                k[f"{name}_path_launches"] = paths[name]["kernel_launches"][
+                    k["name"]]
+            # the held calls of each path that records its CPU run
+            for name, checks in (
+                    ("kg_sstv", paths["kg_sstv"]["kernel_checks"]),
+                    ("m17", paths["m17"]["kernel_checks"]),
+                    ("m17_random_preamble",
+                     paths["m17"]["random_preamble"]["kernel_checks"]),
+                    ("ryfi", paths["ryfi"]["kernel_checks"])):
+                if k["name"] in checks:
+                    check = k[f"{name}_path_check"] = checks[k["name"]]
+                    k["max_abs_err"] = max(k["max_abs_err"],
+                                           check["max_abs_err"])
+        if k["name"] in wider:
+            k["max_abs_err"] = max([k["max_abs_err"]] + [
+                r["max_abs_err"] for r in wider[k["name"]]])
+        if k["name"] == "viterbi_decode":
+            k["rates"] = wider["viterbi_decode"]
+            k["dab_path"] = {**paths["dab"]["viterbi_at_path_shape"],
+                             "path_check": paths["dab"]["kernel_check"]}
+        if k["name"] == "mm_scan":
+            k["wide_banks"] = wider["mm_scan"]
+            k["falcon9_path"] = {**paths["falcon9"]["mm_scan_at_path_shape"],
+                                 "path_check": paths["falcon9"][
+                                     "kernel_check"]}
         if k["name"] == "agc_scan":
             k["launches"] = paths["receiver"]["kernel_launches"]["agc_scan"]
         if k["name"] == "pll_scan":
@@ -2010,7 +2915,7 @@ def main(argv) -> int:
         (k["name"], k["launches"]) for k in kernels]
     print(json.dumps({"kernels": kernels}), flush=True)
     for name in ("fft", "pallas", "receiver", "pll", "ctcss", "meteor",
-                 "rds"):
+                 "rds", "tf32", "dab", "falcon9", "kg_sstv", "m17", "ryfi"):
         print(json.dumps(paths[name]), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": dev["kind"], "count": dev["count"]}}),

@@ -14,16 +14,21 @@ imports nothing of ``sdrtpu`` and nothing of JAX.
   mix + decimate (`kernels.fused_channelizer.mix_decimate`), the AGC,
   PLL and Costas scans (`kernels.loops.agc_scan`, `pll_scan`,
   `costas_scan`), the Mueller & Muller clock recovery
-  (`kernels.clock.mm_scan`) and the Viterbi decoder
-  (`fec.viterbi.viterbi_decode`); on a CPU tensor each wrapper runs its
-  plain PyTorch version instead.
+  (`kernels.clock.mm_scan`, banks of up to 32 taps) and the Viterbi
+  decoder (`fec.viterbi.viterbi_decode`, rates 1/2 to 1/4); on a CPU
+  tensor each wrapper runs its plain PyTorch version instead.
+- Contractions that stand in for the reference's pinned-precision
+  matmuls run in full float32 whatever TF32 settings the caller made
+  (`_precision.fp32_contractions`).
 
 Subpackages mirror sdrtpu: ``graph`` (stream-op protocol, checkpoints),
-``kernels`` (DSP ops), ``shard`` (channelizer), ``apps`` (the multi-VFO
-WBFM pipeline, the radio chain, the receiver and its command line),
-``fec`` (Viterbi, Reed-Solomon), ``decoders`` (CCSDS frames, RDS),
-``io`` (WAV and soft-symbol files); ``convert`` carries state between
-the two packages.
+``kernels`` (DSP ops, the modulators of ``kernels.mod``), ``shard``
+(channelizer, dense and sparse alias fold), ``apps`` (the multi-VFO WBFM
+pipeline, the radio chain, the receiver and its command line), ``fec``
+(Viterbi, Reed-Solomon, Golay), ``decoders`` (CCSDS frames, RDS, DAB,
+Falcon 9, KG-STV, M17 with its codec2 binding, RyFi), ``io`` (WAV and
+soft-symbol files); ``metrics`` is the receiver's registry, and
+``convert`` carries state between the two packages.
 """
 
 from __future__ import annotations

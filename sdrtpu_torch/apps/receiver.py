@@ -318,7 +318,10 @@ class Receiver:
     0 is synchronous.  `close` (or leaving a ``with`` block) ends the
     threads; `flush` and `run_file` end them too, and a later push starts
     them again.
-    ``metrics`` is accepted for signature parity and not used yet.
+    ``metrics``: a `metrics.MetricsRegistry` that records, as the
+    reference's does, the input throughput (``receiver.input``, at the
+    front end's sample rate, on every `push`) and each audio sink's RMS
+    (gauge ``audio.<sink>.rms``, from the audio already on the host).
     """
 
     MODE_CACHE_SIZE = 8  # built Vfo objects kept for switching back
@@ -351,6 +354,8 @@ class Receiver:
         # the lock and emits to the sinks after releasing it.
         self._state_lock = threading.RLock()
         self.metrics = metrics
+        self._thr = (metrics.throughput("receiver.input", frontend.samplerate)
+                     if metrics is not None else None)
         self.async_fetch = async_fetch
         self._emit_error = None
         self._fetch_pool = None
@@ -585,6 +590,8 @@ class Receiver:
         The state lock is held per BLOCK (frame-pop and step as one unit;
         sink emission outside), so control threads wait at most one
         dispatch even when a whole file arrives in one push()."""
+        if self._thr is not None:
+            self._thr.add(len(iq))
         restored = []
         with self._state_lock:
             self.framer.append(np.asarray(iq, np.complex64))
@@ -644,6 +651,9 @@ class Receiver:
                     a = np.concatenate(list(a), axis=-1)
                 if valid_fraction < 1.0:
                     a = a[..., : int(round(a.shape[-1] * valid_fraction))]
+                if self.metrics is not None:
+                    self.metrics.gauge(f"audio.{name}.rms").set(
+                        float(np.sqrt(np.mean(np.square(a)))))
                 sink(a)
         if self.spectrum_sink is not None and spec is not None:
             s = _to_host(spec)

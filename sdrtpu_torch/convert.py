@@ -12,10 +12,14 @@ state.
 ``__array__`` works) and returns torch tensors on ``device``.  Scalar
 leaves (a mixer phase, an AGC average, the CTCSS detector's booleans and
 int32 tone, the M&M's int32 offset and complex64 error memory, the RDS
-demodulator's uint8 differential carry) become 0-d tensors of the same
-dtype; the digital chains (`Costas`, `MeteorCostas`, `FastAgc`,
-`MuellerMuller`, `MeteorDemod`, `Psk`, `RdsDemod`) keep the reference's
-keys, so their states convert this way too.  The reference's
+demodulator's uint8 differential carry, `QuadratureMod`'s float32
+phase) become 0-d tensors of the same dtype; the digital chains
+(`Costas`, `MeteorCostas`, `FastAgc`, `MuellerMuller`, `MeteorDemod`,
+`Psk`, `Gfsk`, `RdsDemod`, `FalconDemod`, `KgSstvDemod`) and the
+modulators (`RrcInterpolator`, `GfskMod`), `MultistageDecimator`'s tuple
+of stage tails and the sparse fold's tables (``hf`` of the live alias
+rows and the int32 ``fold_idx``) keep the reference's keys and dtypes,
+so their states convert this way too.  The reference's
 receiver keeps complex leaves as planar ``(re, im)`` pairs across its
 compiled step (a named tuple with those two fields); such a pair is
 joined into one complex leaf.  ``state_to_numpy`` goes back, to complex

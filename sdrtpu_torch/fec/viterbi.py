@@ -8,11 +8,16 @@ symbols are floats where positive means bit 0.
 `ConvEncoder` is a host numpy copy of the reference's.  `ViterbiDecoder`
 decodes a whole block on the decoder's device: on a CUDA tensor one
 `viterbi_decode` launch (``csrc/viterbi.cu``: add-compare-select and
-traceback; rate 1/2, K <= 7), on a CPU tensor the plain PyTorch loop
-`viterbi_decode_ref`, and only then.  Both repeat the reference's
-arithmetic (branch metric = one rounded sum of two exact products,
-first-maximum pick, normalisation by the maximum), so the decoded bits
-and final metrics equal the JAX package's to the bit.
+traceback; rate 1/2, 1/3 or 1/4, K <= 7), on a CPU tensor the plain
+PyTorch loop `viterbi_decode_ref`, and only then; `decode_rows` decodes
+several independent blocks in one launch.  Both repeat the reference's
+arithmetic (branch metric = the R exact products summed in r order,
+each add rounded, first-maximum pick, normalisation by the maximum), so
+kernel and plain loop agree to the bit.  At rate 1/2 that is also the
+JAX package's order; at R = 3 or 4 its einsum may sum the products in
+another order, which gives the same bits whenever the sums are exact
+(DAB's +-1 and 0 soft symbols) and agrees within float32 rounding
+otherwise.
 """
 
 from __future__ import annotations
@@ -110,7 +115,7 @@ def viterbi_decode_ref(sym, exp_prev, prev, prev_bit):
 def _viterbi_launcher():
     fn = _build.load("viterbi").viterbi_decode_launch
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 2
-                   + [ctypes.c_int, ctypes.c_void_p])
+                   + [ctypes.c_int] * 2 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -120,8 +125,8 @@ def viterbi_decode(sym, exp_prev, prev, prev_bit):
     `viterbi_decode_ref` for the arguments.  CPU tensors:
     `viterbi_decode_ref`.  CUDA tensors: the kernel on the current stream
     (``viterbi_decode.launches`` counts); no fallback.  The kernel takes
-    rate 1/2 (R = 2) and S = 2^(K-1) <= 64 states of the reference's
-    shift-register trellis, and raises otherwise."""
+    rate 1/R for R in {2, 3, 4} and S = 2^(K-1) <= 64 states of the
+    reference's shift-register trellis, and raises otherwise."""
     if sym.device.type == "cpu":
         return viterbi_decode_ref(sym, exp_prev, prev, prev_bit)
     if sym.device.type != "cuda":
@@ -138,10 +143,10 @@ def viterbi_decode(sym, exp_prev, prev, prev_bit):
                and np.array_equal(prev, np.stack(
                    [(s << 1) & (S - 1), ((s << 1) & (S - 1)) | 1], axis=1))
                and np.array_equal(prev_bit, np.stack([s >> (K - 2)] * 2, 1)))
-    if R != 2 or not trellis or not 1 <= rows < 2 ** 31:
-        raise ValueError(f"viterbi_decode: the kernel takes R = 2 and the "
-                         f"shift-register trellis of K <= 7, got R {R}, "
-                         f"S {S}, rows {rows}")
+    if not 2 <= R <= 4 or not trellis or not 1 <= rows < 2 ** 31:
+        raise ValueError(f"viterbi_decode: the kernel takes R in (2, 3, 4) "
+                         f"and the shift-register trellis of K <= 7, got "
+                         f"R {R}, S {S}, rows {rows}")
     bits = torch.empty((rows, n), dtype=torch.uint8, device=sym.device)
     metrics = torch.empty((rows, S), dtype=torch.float32, device=sym.device)
     if n == 0:
@@ -155,7 +160,7 @@ def viterbi_decode(sym, exp_prev, prev, prev_bit):
     with torch.cuda.device(sym.device):
         stream = torch.cuda.current_stream(sym.device).cuda_stream
         rc = fn(sym.data_ptr(), e.data_ptr(), choices.data_ptr(),
-                bits.data_ptr(), metrics.data_ptr(), rows, n, K, stream)
+                bits.data_ptr(), metrics.data_ptr(), rows, n, K, R, stream)
     if rc != 0:
         raise RuntimeError(f"viterbi_decode: CUDA launch failed (error {rc})")
     viterbi_decode.launches += 1
@@ -208,10 +213,18 @@ class ViterbiDecoder(StreamOp):
 
     def decode(self, soft) -> torch.Tensor:
         soft = torch.as_tensor(soft, dtype=torch.float32, device=self.device)
+        return self.decode_rows(soft[None])[0]
+
+    def decode_rows(self, soft) -> torch.Tensor:
+        """(rows, N*rate) soft symbols -> (rows, N) bits: each row an
+        independent block, all decoded by one launch (the same bits as a
+        `decode` of each row)."""
+        soft = torch.as_tensor(soft, dtype=torch.float32, device=self.device)
+        rows = soft.shape[0]
         n = soft.shape[-1] // self.rate
-        sym = soft[: n * self.rate].reshape(1, n, self.rate).contiguous()
+        sym = soft[:, : n * self.rate].reshape(rows, n, self.rate).contiguous()
         bits, _ = viterbi_decode(sym, self.exp_prev, self.prev, self.prev_bit)
-        return bits[0]
+        return bits
 
     # StreamOp interface: stateless block decode
     def init_state(self):

@@ -1,15 +1,18 @@
 """Symbol timing recovery (PyTorch counterpart of ``sdrtpu/kernels/clock.py``).
 
 `MuellerMuller` is the reference's M&M synchroniser: a polyphase-bank
-fractional interpolator (128 phases x 8 taps, Nuttall windowed sinc)
+fractional interpolator (by default 128 phases x 8 taps, Nuttall windowed
+sinc)
 driven by a second-order loop whose per-output input stride depends on
 the data (``offset += floor(phase)``).  Its outputs keep the reference's
 static shape: ``max_out(n)`` slots and a validity mask.  On a CUDA tensor
 the loop over output symbols is one `mm_scan` launch (``csrc/
 sync_loops.cu``); on a CPU tensor the wrapper runs the plain PyTorch loop
-`mm_scan_ref`, and only then.  Both take the 8-tap sum as a pairwise tree
+`mm_scan_ref`, and only then.  Both take the tap sum as a pairwise tree
 in the same order, so they agree to the last place and make the same
-``floor`` decisions.
+``floor`` decisions.  The kernel takes up to 32 taps (its bank padded
+with zero taps to 8, 16 or 32) and any phase count whose bank fits the
+shared memory one block may take on the card.
 
 `FeedforwardSymbolSync` is the block-parallel alternative (Oerder & Meyr
 timing per block, then interpolation at that phase): no carry, plain
@@ -25,13 +28,13 @@ import numpy as np
 import torch
 
 from .. import _build, resolve_device
+from .._precision import fp32_contractions
 from ..graph.block import StreamOp
 from . import taps as tapsmod
 from .loops import _f32, _sign
 from .resample import build_polyphase_bank
 
-_MM_TAPS = 8        # the kernel's interpolator length
-_MM_MAX_PHASES = 512  # its bank's shared-memory room
+_MM_TAP_WIDTHS = (8, 16, 32)  # the kernel's padded interpolator lengths
 
 
 def interp_bank(phase_count: int = 128, tap_count: int = 8) -> np.ndarray:
@@ -114,12 +117,26 @@ def mm_scan_ref(ext, bank, n, n_out, offset0, fstate0, cstate0, fmin, fmax,
 
 @functools.cache
 def _mm_launcher():
-    fn = _build.load("sync_loops").mm_scan_launch
+    lib = _build.load("sync_loops")
+    fn = lib.mm_scan_launch
     fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_longlong] * 4
-                   + [ctypes.c_int] * 2 + [ctypes.c_float] * 4
+                   + [ctypes.c_int] * 4 + [ctypes.c_float] * 4
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    return fn
+    room = lib.mm_scan_max_bank_bytes
+    room.argtypes = [ctypes.c_int] * 2
+    room.restype = ctypes.c_longlong
+    return fn, room
+
+
+@functools.cache
+def _mm_room(device_index: int, cplx: bool, Tp: int) -> int:
+    """The largest bank (bytes) the kernel for ``Tp`` padded taps takes
+    on that card; the C side opts the kernel in to it there, so this
+    runs before the first launch on each card."""
+    room = _mm_launcher()[1]
+    with torch.cuda.device(device_index):
+        return room(int(cplx), Tp)
 
 
 def mm_scan(ext, bank, n, n_out, offset0, fstate0, cstate0, fmin, fmax,
@@ -127,8 +144,8 @@ def mm_scan(ext, bank, n, n_out, offset0, fstate0, cstate0, fmin, fmax,
     """Mueller & Muller symbols of ``n`` new samples: see `mm_scan_ref`
     for the arguments and results.  CPU tensors: `mm_scan_ref`.  CUDA
     tensors: the kernel on the current stream (``mm_scan.launches``
-    counts); no fallback.  The kernel takes 8 taps and at most 512 bank
-    phases and raises otherwise."""
+    counts); no fallback.  The kernel takes up to 32 taps and a bank that
+    fits one block's shared memory, and raises otherwise."""
     if ext.device.type == "cpu":
         return mm_scan_ref(ext, bank, n, n_out, offset0, fstate0, cstate0,
                            fmin, fmax, omega_gain, mu_gain)
@@ -141,13 +158,23 @@ def mm_scan(ext, bank, n, n_out, offset0, fstate0, cstate0, fmin, fmax,
                          f"ext, got {ext.dtype} {tuple(ext.shape)}")
     rows, L = ext.shape
     P, T = bank.shape
-    if T != _MM_TAPS or not 1 <= P <= _MM_MAX_PHASES:
-        raise ValueError(f"mm_scan: the kernel takes {_MM_TAPS} taps and at "
-                         f"most {_MM_MAX_PHASES} phases, got bank {(P, T)}")
+    if not 1 <= T <= _MM_TAP_WIDTHS[-1] or P < 1:
+        raise ValueError(f"mm_scan: the kernel takes 1 to "
+                         f"{_MM_TAP_WIDTHS[-1]} taps, got bank {(P, T)}")
     if not (1 <= rows < 2 ** 31 and n >= 1 and L == n + T - 1
             and n_out >= 0):
         raise ValueError(f"mm_scan: bad shape ext {(rows, L)}, n {n}")
-    bank = bank.to(device=ext.device, dtype=torch.float32).contiguous()
+    Tp = next(w for w in _MM_TAP_WIDTHS if w >= T)
+    fn = _mm_launcher()[0]
+    limit = _mm_room(ext.device.index, cplx, Tp)
+    if P * Tp * 4 > limit:
+        raise ValueError(f"mm_scan: a bank of {P} phases x {Tp} taps "
+                         f"({P * Tp * 4} bytes) exceeds the {limit} bytes of "
+                         f"shared memory one block may take on this card")
+    bank = bank.to(device=ext.device, dtype=torch.float32)
+    if Tp != T:
+        bank = torch.nn.functional.pad(bank, (0, Tp - T))
+    bank = bank.contiguous()
     offset0 = offset0.to(torch.int32).contiguous()
     fstate0 = fstate0.to(torch.float32).contiguous()
     cstate0 = cstate0.to(torch.complex64).contiguous()
@@ -159,14 +186,13 @@ def mm_scan(ext, bank, n, n_out, offset0, fstate0, cstate0, fmin, fmax,
     offset = torch.empty_like(offset0)
     fstate = torch.empty_like(fstate0)
     cstate = torch.empty_like(cstate0)
-    fn = _mm_launcher()
     with torch.cuda.device(ext.device):
         stream = torch.cuda.current_stream(ext.device).cuda_stream
         rc = fn(ext.data_ptr(), bank.data_ptr(), syms.data_ptr(),
                 valid.data_ptr(), offset0.data_ptr(), fstate0.data_ptr(),
                 cstate0.data_ptr(), offset.data_ptr(), fstate.data_ptr(),
-                cstate.data_ptr(), rows, L, n, n_out, P, int(cplx), fmin,
-                fmax, omega_gain, mu_gain, stream)
+                cstate.data_ptr(), rows, L, n, n_out, P, T, Tp, int(cplx),
+                fmin, fmax, omega_gain, mu_gain, stream)
     if rc != 0:
         raise RuntimeError(f"mm_scan: CUDA launch failed (error {rc})")
     mm_scan.launches += 1
@@ -323,4 +349,6 @@ class FeedforwardSymbolSync(StreamOp):
         k = torch.arange(n_sym, device=x.device) * self.sps
         t = torch.arange(self.T, device=x.device)
         frames = ext[(base + k)[:, None] + t[None, :]]
-        return ext[n:], frames @ taps
+        with fp32_contractions():
+            y = frames @ taps
+        return ext[n:], y

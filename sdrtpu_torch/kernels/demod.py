@@ -55,3 +55,13 @@ class Quadrature(StreamOp):
             y = self._discriminate(state["prev"], x, state["rot"])
             return {"prev": x[..., -1], "rot": state["rot"]}, y
         return x[..., -1], self._discriminate(state, x)
+
+
+def complex_to_real(x: torch.Tensor) -> torch.Tensor:
+    """``convert::ComplexToReal``: the real part."""
+    return x.real
+
+
+def real_to_complex(x: torch.Tensor) -> torch.Tensor:
+    """``convert::RealToComplex``: a zero imaginary part."""
+    return x.to(torch.complex64)

@@ -13,10 +13,13 @@ Three evaluations of the same sum:
   (the WFM pilot and de-emphasis paths);
 - `fft_correlate_valid`: FFT overlap-save (long filters).
 
+`Fir`, `DecimatingFir` and `MultistageDecimator` (a cascade of half-band
+decimate-by-2 stages) are the stream ops on top.
+
 Contractions are float32 ``torch.matmul``.  The reference pins its TPU
 matmuls to multi-pass precision because one bf16 pass broke the demod
-SINAD floors; the port's equivalent is full float32 with TF32 off
-(``torch.backends.cuda.matmul.allow_tf32 = False``, PyTorch's default).
+SINAD floors; the port pins full float32 on each call
+(`fp32_contractions`: TF32 off, the caller's settings restored).
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from .._precision import fp32_contractions
 from ..graph.block import StreamOp
 
 
@@ -111,14 +115,17 @@ def shifted_window_matmul(xr: torch.Tensor, mat: torch.Tensor,
 
     ``xr``: (..., rows, M) — one input laid out as rows of M.  The
     (A, R*M) frame matrix is never built: each of the R row blocks of
-    ``mat`` contracts a shifted unit-stride view of the same rows.
+    ``mat`` contracts a shifted unit-stride view of the same rows.  Full
+    float32 (`fp32_contractions`).
     """
     M = int(xr.shape[-1])
     R = int(mat.shape[0]) // M
     acc = None
-    for q in range(R):
-        term = torch.matmul(xr[..., q : q + A, :], mat[q * M : (q + 1) * M])
-        acc = term if acc is None else acc + term
+    with fp32_contractions():
+        for q in range(R):
+            term = torch.matmul(xr[..., q : q + A, :],
+                                mat[q * M : (q + 1) * M])
+            acc = term if acc is None else acc + term
     return acc
 
 
@@ -310,3 +317,39 @@ class DecimatingFir(StreamOp):
         y = correlate_valid(ext, self.taps, stride=self.decimation)
         new_state = ext[..., n:] if self.ntaps > 1 else state
         return new_state, y
+
+
+class MultistageDecimator(StreamOp):
+    """Power-of-two decimation as a cascade of half-band decimate-by-2
+    FIRs (the reference's redesign of ``PowerDecimator``): one
+    `DecimatingFir` per halving, taps from ``taps_fn`` (default
+    `taps.half_band`); state is the tuple of the stages' tails."""
+
+    def __init__(self, ratio: int, dtype=torch.complex64, taps_fn=None,
+                 device="cuda"):
+        assert ratio >= 1 and (ratio & (ratio - 1)) == 0, "ratio must be 2^k"
+        from . import taps as tapsmod
+
+        self.ratio = int(ratio)
+        self.dtype = dtype
+        taps_fn = taps_fn or (lambda: tapsmod.half_band())
+        self.stages = []
+        r = self.ratio
+        while r > 1:
+            self.stages.append(DecimatingFir(taps_fn(), 2, dtype,
+                                             device=device))
+            r //= 2
+
+    def init_state(self):
+        return tuple(s.init_state() for s in self.stages)
+
+    def out_len(self, n: int) -> int:
+        assert n % self.ratio == 0
+        return n // self.ratio
+
+    def __call__(self, state, x):
+        new_states = []
+        for s, st in zip(self.stages, state):
+            st, x = s(st, x)
+            new_states.append(st)
+        return tuple(new_states), x

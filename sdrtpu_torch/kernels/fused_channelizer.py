@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from .. import _build, resolve_device
+from .._precision import fp32_contractions
 from ..graph.block import StreamOp
 
 ROW = 1024
@@ -93,8 +94,9 @@ def mix_decimate_ref(tail, x, coarse, fine, taps, phase,
     mr = e_re * rot_re - e_im * rot_im  # (C, rows_out + 1, 1024)
     mi = e_re * rot_im + e_im * rot_re
     w1, w2 = _toeplitz_mats(taps, M)
-    y_re = mr[:, :rows_out] @ w1 + mr[:, 1:, :SPILL] @ w2
-    y_im = mi[:, :rows_out] @ w1 + mi[:, 1:, :SPILL] @ w2
+    with fp32_contractions():
+        y_re = mr[:, :rows_out] @ w1 + mr[:, 1:, :SPILL] @ w2
+        y_im = mi[:, :rows_out] @ w1 + mi[:, 1:, :SPILL] @ w2
     C = coarse.shape[0]
     return torch.complex(y_re, y_im).reshape(C, -1)[:, :n_out]
 
@@ -119,8 +121,9 @@ def mix_decimate_modulated_ref(tail, x, coarse, fine, taps, phase,
     # planar float32 products, as the kernel's four FFMA per tap
     fr, fi = frames.real, frames.imag
     gr, gi = g.real.T.contiguous(), g.imag.T.contiguous()
-    z_re = fr @ gr - fi @ gi                             # (n_out, C)
-    z_im = fr @ gi + fi @ gr
+    with fp32_contractions():
+        z_re = fr @ gr - fi @ gi                         # (n_out, C)
+        z_im = fr @ gi + fi @ gr
     # the coarse rows rotated by the carried phase, as the reference does
     pr, pi = torch.cos(phase)[:, None], torch.sin(phase)[:, None]
     e = torch.arange(n_out, device=x.device) * M

@@ -5,7 +5,8 @@
 - `PolyphaseResampler`: L/M polyphase interpolator-decimator with the
   reference's phase/offset math, as the reference's ``"matmul"`` method
   (the WFM audio path): shifted row views against a host-built window
-  matrix.
+  matrix; it takes the reference's ``method`` names and computes each
+  with the matmul.
 - `RationalResampler`: the reference's planner — it must emit the same
   plan and the same taps, because the channelizer takes its channel
   filter from it.
@@ -113,12 +114,15 @@ class PolyphaseResampler(StreamOp):
     window matrix ``G[j, b] = bank[p_b, t]`` at ``j = off_b + t``: R
     matmuls on shifted views of one (rows, decim) reshape
     (`shifted_window_matmul`).  This is the reference's ``"matmul"``
-    method; its ``"unrolled"`` form for small banks computes the same
-    sums and is not ported.
+    method.  ``method`` takes the reference's names, "auto", "matmul",
+    "unrolled" and "gather"; every form computes the same sums, and the
+    port computes them all with the matmul (in float32, so the sums'
+    order, and the last bits, differ from the reference's shift-and-add
+    forms).
     """
 
     def __init__(self, interp: int, decim: int, taps: np.ndarray,
-                 dtype=torch.complex64, device="cuda"):
+                 dtype=torch.complex64, method: str = "auto", device="cuda"):
         self.device = resolve_device(device)
         self.interp = int(interp)
         self.decim = int(decim)
@@ -126,6 +130,8 @@ class PolyphaseResampler(StreamOp):
         bank = build_polyphase_bank(self.interp, taps)
         self.taps_per_phase = bank.shape[1]
         self.bank = bank
+        if method not in ("auto", "unrolled", "gather", "matmul"):
+            raise ValueError(f"unknown PolyphaseResampler method {method!r}")
         L, M, tpp = self.interp, self.decim, self.taps_per_phase
         R = 1 + -(-(tpp - 1) // M) if tpp > 1 else 1
         G = np.zeros((R * M, L), np.float64)

@@ -7,6 +7,8 @@ The N VFOs are one more tensor axis.  Ported here:
 - `FftDecimatorChain`, the dense alias-fold path: overlap-save chunks in
   polyphase layout from the CUDA kernel `chunk_poly`, a length-nif FFT
   batch, the fold against the host-built table ``G``, then ifft and trim;
+  with ``sparse_thresh_db`` the sparse fold (nfft-point FFT of the
+  chunks, a gather of each channel's live alias rows, an fp32 einsum);
 - `ModulatedDecimatorChain`, the time-domain path: the mixer folded into
   per-channel modulated taps of each decimation stage
   (`correlate_valid_bank`), one residual rotator at the output rate;
@@ -15,8 +17,7 @@ The N VFOs are one more tensor axis.  Ported here:
   the fused mix + decimate CUDA kernel K2, `FusedChannelizerStage`, then
   the remaining predecimation stages and the fractional tail).
 
-Not ported yet (each raises NotImplementedError; ROADMAP.md M11): the
-sparse fold and "pfb".
+Not ported yet (raises NotImplementedError; ROADMAP.md M11): "pfb".
 
 Offset-dependent tables (the fold table ``hf`` and the rotator tables)
 live in the state on the device, so a retune is a host rebuild and a
@@ -29,6 +30,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from .._precision import fp32_contractions
 from ..graph.block import StreamOp
 from ..kernels import taps as tapsmod
 from ..kernels.chunks import chunk_poly
@@ -40,8 +42,8 @@ _TWO_PI = 2.0 * np.pi
 _FINE = 1024
 
 _NOT_PORTED = ("is not ported yet (ROADMAP.md M11: channelizer alternates); "
-               "sdrtpu_torch runs the fft, xla-fused, xla and pallas "
-               "channelizers")
+               "sdrtpu_torch runs the fft (dense and sparse fold), "
+               "xla-fused, xla and pallas channelizers")
 
 
 class MultiVfoMixer(StreamOp):
@@ -312,13 +314,22 @@ class FftDecimatorChain(StreamOp):
 
     then the residual rotator at the decimated rate, unless
     ``skip_rotator`` hands it to the FM discriminator (`residual_omega`).
+
+    ``sparse_thresh_db`` (opt-in, as the reference): each channel's
+    filter spectrum is a narrow lowpass shifted to its offset, so of the
+    R alias rows only those whose peak is within ``sparse_thresh_db`` of
+    the global peak are kept, chosen per channel on the host.  The state
+    then carries the ``(C, Rk, nif)`` table ``hf`` of those rows and
+    their indices ``fold_idx`` ``(C, Rk)`` (a channel with fewer live
+    rows pads with row 0 and zero taps), and a window runs the nfft-point
+    FFT of the chunks, a gather of each channel's rows and a float32
+    einsum.  When some channel keeps more than R // 2 rows the dense fold
+    is used instead.
     """
 
     def __init__(self, offsets_hz, samplerate, stages, block_len,
                  skip_rotator=False, sparse_thresh_db: float | None = None,
                  device="cuda"):
-        if sparse_thresh_db is not None:
-            raise NotImplementedError("the sparse alias fold " + _NOT_PORTED)
         self.device = resolve_device(device)
         offsets = np.asarray(offsets_hz, np.float64)
         self.n_channels = len(offsets)
@@ -343,15 +354,37 @@ class FftDecimatorChain(StreamOp):
         hm = h_pad[None, :] * np.exp(
             1j * np.mod(omega_p[:, None] * t_idx, _TWO_PI))  # (C, Tpad)
         hf = np.fft.fft(hm[:, ::-1], nfft, axis=-1)  # (C, nfft)
-        # Polyphase-split forward transform: n = q*R + s, so only
-        # length-nif FFTs run; the outer Cooley-Tukey stage and 1/R fold
-        # into G[c,s,k] = (1/R) e^{-2pi i s k/nfft} DFT_R(hf[c,:,k])[s].
-        s_idx = np.arange(R, dtype=np.float64)
-        k_idx = np.arange(self.nif, dtype=np.float64)
-        tw = np.exp(-2j * np.pi * np.outer(s_idx, k_idx) / nfft)
-        G = np.fft.fft(hf.reshape(self.n_channels, R, self.nif), axis=1)
-        self._g_folded = np.ascontiguousarray(
-            G * tw[None, :, :] / R).astype(np.complex64)
+        self._sparse_thresh = sparse_thresh_db
+        self._sparse = False
+        if sparse_thresh_db is not None:
+            folded = np.ascontiguousarray(
+                hf.reshape(self.n_channels, R, self.nif)).astype(np.complex64)
+            rowmax = np.abs(folded).max(axis=2)  # (C, R)
+            thresh = rowmax.max() * 10.0 ** (sparse_thresh_db / 20.0)
+            keep = rowmax > thresh
+            rk = int(keep.sum(axis=1).max())
+            self._sparse = 0 < rk <= R // 2
+        if self._sparse:
+            self.rk = rk
+            idx = np.zeros((self.n_channels, rk), np.int32)
+            hs = np.zeros((self.n_channels, rk, self.nif), np.complex64)
+            for c in range(self.n_channels):
+                rows = np.flatnonzero(keep[c])
+                idx[c, : len(rows)] = rows
+                hs[c, : len(rows)] = folded[c, rows]
+            self._fold_idx = idx
+            self._hf_sparse = hs
+        else:
+            # Polyphase-split forward transform: n = q*R + s, so only
+            # length-nif FFTs run; the outer Cooley-Tukey stage and 1/R
+            # fold into G[c,s,k] = (1/R) e^{-2pi i s k/nfft}
+            # DFT_R(hf[c,:,k])[s].
+            s_idx = np.arange(R, dtype=np.float64)
+            k_idx = np.arange(self.nif, dtype=np.float64)
+            tw = np.exp(-2j * np.pi * np.outer(s_idx, k_idx) / nfft)
+            G = np.fft.fft(hf.reshape(self.n_channels, R, self.nif), axis=1)
+            self._g_folded = np.ascontiguousarray(
+                G * tw[None, :, :] / R).astype(np.complex64)
         self.rot = MultiVfoMixer(-offsets, samplerate / R, n // R,
                                  device=self.device)
         # taps modulated over the PADDED index: the rotator phase cancels
@@ -366,25 +399,40 @@ class FftDecimatorChain(StreamOp):
     def init_state(self):
         rot = self.rot.init_state()
         rot["phase"] = torch.as_tensor(self._phase0.copy(), device=self.device)
-        return {
+        st = {
             "tail": torch.zeros(self.tpad - 1, dtype=torch.complex64,
                                 device=self.device),
             "rot": rot,
-            "hf": torch.as_tensor(self._g_folded, device=self.device),
         }
+        if self._sparse:
+            st["hf"] = torch.as_tensor(self._hf_sparse, device=self.device)
+            st["fold_idx"] = torch.as_tensor(self._fold_idx,
+                                             device=self.device)
+        else:
+            st["hf"] = torch.as_tensor(self._g_folded, device=self.device)
+        return st
 
     def retune_state(self, state, offsets_hz, samplerate: float,
                      stages) -> dict:
         """Swap the offset-dependent tables (fold table, rotator tables);
         keep the wideband tail.  Each channel's accumulated rotator phase
         is carried over in float32 (minus the old group-delay constant,
-        plus the new), so unmoved channels see no phase step."""
+        plus the new), so unmoved channels see no phase step.  With the
+        sparse fold, offsets whose live-row layout differs (sparse on or
+        off, another row count) raise ValueError: rebuild the chain."""
         fresh = FftDecimatorChain(offsets_hz, samplerate, stages,
                                   self.block_len,
                                   skip_rotator=self.skip_rotator,
+                                  sparse_thresh_db=self._sparse_thresh,
                                   device=self.device)
         assert fresh.nfft == self.nfft and fresh.ratio == self.ratio, (
             "retune changed the FFT plan; rebuild the chain instead")
+        if fresh._sparse != self._sparse or (
+                self._sparse and fresh.rk != self.rk):
+            # the live rows follow the offsets; another row count changes
+            # the state's shapes
+            raise ValueError(
+                "retune changed the sparse-fold layout; rebuild the chain")
         new = fresh.init_state()
         new["tail"] = state["tail"]
         phase = state["rot"]["phase"].to(torch.float32)
@@ -393,7 +441,9 @@ class FftDecimatorChain(StreamOp):
             + torch.as_tensor(fresh._phase0, device=phase.device),
             _TWO_PI,
         )
-        self._g_folded = fresh._g_folded
+        for attr in ("_g_folded", "_hf_sparse", "_fold_idx"):
+            if hasattr(fresh, attr):
+                setattr(self, attr, getattr(fresh, attr))
         self._phase0 = fresh._phase0
         self.rot = fresh.rot
         self.residual_omega = fresh.residual_omega
@@ -411,9 +461,20 @@ class FftDecimatorChain(StreamOp):
         new_tail = ext[n:].clone()
         # any multiple of block_len runs as one window: P scales with K
         P = K * self.n_chunks
-        ct = chunk_poly(ext, self.valid, self.ratio, self.nif, P)
-        Fp = torch.fft.fft(ct)  # (P, R, nif)
-        S = torch.einsum("psk,csk->cpk", Fp, state["hf"])
+        if self._sparse:
+            # chunk p = ext[p*valid : p*valid + nfft]; its nfft-point
+            # spectrum as (R, nif) alias rows, each channel's gathered
+            X = torch.fft.fft(ext.unfold(0, self.nfft, self.valid))
+            Xg = X.reshape(P, self.ratio, self.nif)[
+                :, state["fold_idx"].long(), :]  # (P, C, Rk, nif)
+            with fp32_contractions():
+                S = torch.einsum("pcrk,crk->cpk", Xg,
+                                 state["hf"]) / self.ratio
+        else:
+            ct = chunk_poly(ext, self.valid, self.ratio, self.nif, P)
+            Fp = torch.fft.fft(ct)  # (P, R, nif)
+            with fp32_contractions():
+                S = torch.einsum("psk,csk->cpk", Fp, state["hf"])
         y = torch.fft.ifft(S)  # (C, P, nif)
         m0 = (self.tpad - 1) // self.ratio
         y = y[:, :, m0 : m0 + self.valid // self.ratio]
@@ -424,7 +485,10 @@ class FftDecimatorChain(StreamOp):
             st_rot, y = self.rot(state["rot"], y)
         else:
             st_rot, y = self.rot.rotate_blocks(state["rot"], y, K)
-        return {"tail": new_tail, "rot": st_rot, "hf": state["hf"]}, y
+        new_state = {"tail": new_tail, "rot": st_rot, "hf": state["hf"]}
+        if self._sparse:
+            new_state["fold_idx"] = state["fold_idx"]
+        return new_state, y
 
 
 def _pallas_eligible(resampler: RationalResampler) -> bool:
@@ -506,14 +570,13 @@ class Channelizer(StreamOp):
             raise ValueError(
                 "skip_rotator needs an integer in->IF ratio and no "
                 "low_pass_bw (the IF is left un-derotated)")
-        if sparse_thresh_db is not None and method == "fft":
-            raise NotImplementedError("the sparse alias fold " + _NOT_PORTED)
         self.rest_stages = []
         self.fused = self.mixer = None
         if method == "fft":
             self.fused = FftDecimatorChain(
                 self.offsets, in_samplerate, self._stages(), block_len,
-                skip_rotator=self.skip_rotator, device=self.device)
+                skip_rotator=self.skip_rotator,
+                sparse_thresh_db=sparse_thresh_db, device=self.device)
         elif method == "xla-fused":
             self.fused = ModulatedDecimatorChain(
                 self.offsets, in_samplerate, self._stages(), block_len,

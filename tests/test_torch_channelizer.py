@@ -181,7 +181,7 @@ def test_skip_rotator_guard_is_stricter_than_the_reference():
 
 
 @pytest.mark.parametrize("kw", [
-    {"method": "pfb"}, {"sparse_thresh_db": -100.0},
+    {"method": "pfb"},
 ])
 def test_unported_paths_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):

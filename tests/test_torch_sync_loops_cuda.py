@@ -12,7 +12,10 @@ plain loops to the last place except where PyTorch divides by a Python
 scalar (the phase wrap multiplies by the reciprocal) or its sinf/cosf
 differ by an ulp.  `costas_scan`: 1e-5 of the peak on the output and
 1e-4 rad on the carried phase and frequency.  `mm_scan`: equal valid
-counts, symbols within 1e-5 of the block peak, carried offset equal.
+counts, symbols within 1e-5 of the block peak, carried offset equal;
+the same at the wider banks (16 taps x 256 phases, 8 x 1024, 32 x 1600
+above the default 48 KB of shared memory), with the taps summed as the
+plain version's pairwise tree.
 """
 
 import numpy as np
@@ -62,14 +65,17 @@ def test_costas_scan_kernel_matches_plain(rows, n, mode):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("cplx,n", [(True, 3000), (False, 500),
-                                    (True, 4500)])
-def test_mm_scan_kernel_matches_plain(cplx, n):
+@pytest.mark.parametrize("cplx,n,taps,phases", [
+    (True, 3000, 8, 128), (False, 500, 8, 128), (True, 4500, 8, 128),
+    (True, 3000, 16, 256), (False, 3000, 16, 256), (True, 3000, 8, 1024),
+    (False, 2000, 8, 1024), (True, 2000, 12, 300), (False, 2000, 32, 1600)])
+def test_mm_scan_kernel_matches_plain(cplx, n, taps, phases):
     _need_card()
     rng = np.random.default_rng(6)
     omega = 25.0 / 12.0 if cplx else 5000.0 / 1187.5
     mm = clock.MuellerMuller(omega, 1e-6, 0.01, 0.01, complex_mode=cplx,
-                             device="cuda")
+                             interp_phase_count=phases,
+                             interp_tap_count=taps, device="cuda")
     if cplx:
         x = rng.standard_normal(n) + 1j * rng.standard_normal(n)
     else:
@@ -98,3 +104,18 @@ def test_mm_scan_kernel_matches_plain(cplx, n):
         assert (got[0] - want[0]).abs().max().item() <= 1e-5 * peak
         assert torch.equal(got[2], want[2])
         st, _ = mm(st, blk)
+
+
+@pytest.mark.cuda
+def test_mm_scan_refuses_a_bank_it_cannot_hold():
+    """More than 32 taps, or a bank past one block's shared memory."""
+    _need_card()
+    for phases, taps in ((128, 33), (100_000, 8)):
+        bank = torch.zeros((phases, taps), device="cuda")
+        ext = torch.zeros((1, 100 + taps - 1), device="cuda")
+        with pytest.raises(ValueError):
+            clock.mm_scan(ext, bank, 100, 60, torch.zeros(1, dtype=torch.int32,
+                                                          device="cuda"),
+                          torch.zeros((1, 3), device="cuda"),
+                          torch.zeros((1, 4), dtype=torch.complex64,
+                                      device="cuda"), 3.9, 4.1, 1e-6, 0.01)

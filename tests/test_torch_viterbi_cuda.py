@@ -6,10 +6,12 @@ on a machine without it run it as
 
     python -m pytest tests/test_torch_viterbi_cuda.py -q --noconftest
 
-Tolerance: none.  Branch metrics are one rounded sum of two exact
-products, candidates one rounded add, the pick the first maximum and the
-normalisation one rounded subtract, in the kernel and in the plain loop:
-bits and final metrics are equal (``torch.equal``).
+Tolerance: none.  Branch metrics are the R exact products summed in r
+order with each add rounded, candidates one rounded add, the pick the
+first maximum and the normalisation one rounded subtract, in the kernel
+and in the plain loop: bits and final metrics are equal
+(``torch.equal``), at rates 1/2, 1/3 and 1/4, on random float soft
+symbols.
 """
 
 import numpy as np
@@ -25,19 +27,26 @@ def _need_card():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
 
 
+DAB = (0o133, 0o171, 0o145, 0o133)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("K,polys,rows,n,noise", [
     (7, (0o171, 0o133), 1, 3000, 0.6), (7, (0o171, 0o133), 2, 2500, 0.8),
-    (5, (0o27, 0o31), 1, 2000, 0.6), (7, (0o171, 0o133), 1, 1025, 0.0)])
+    (5, (0o27, 0o31), 1, 2000, 0.6), (7, (0o171, 0o133), 1, 1025, 0.0),
+    (7, DAB, 1, 3000, 0.8), (7, DAB, 4, 774, 1.0), (5, DAB, 1, 2000, 0.8),
+    (7, DAB[:3], 2, 1500, 0.7), (5, DAB[:3], 1, 2100, 0.7),
+    (7, DAB, 1, 1025, 0.0)])
 def test_viterbi_kernel_matches_plain(K, polys, rows, n, noise):
     _need_card()
     rng = np.random.default_rng(7)
+    R = len(polys)
     enc, dec = tv.ConvEncoder(K, polys), tv.ViterbiDecoder(K, polys,
                                                            device="cuda")
     bits = rng.integers(0, 2, (rows, n)).astype(np.uint8)
     soft = np.stack([enc.encode_to_soft(b) for b in bits])
     soft = (soft + noise * rng.standard_normal(soft.shape)).astype(np.float32)
-    sym = torch.as_tensor(soft.reshape(rows, n, 2), device="cuda")
+    sym = torch.as_tensor(soft.reshape(rows, n, R), device="cuda")
     args = (sym, dec.exp_prev, dec.prev, dec.prev_bit)
     before = tv.viterbi_decode.launches
     got_bits, got_m = tv.viterbi_decode(*args)
@@ -52,8 +61,33 @@ def test_viterbi_kernel_matches_plain(K, polys, rows, n, noise):
 
 @pytest.mark.cuda
 def test_viterbi_kernel_refuses_what_it_cannot_decode():
+    """Rate 1/5 and K = 8 are beyond the kernel."""
     _need_card()
-    dec = tv.ViterbiDecoder(3, (0o7, 0o5, 0o3), device="cuda")  # rate 1/3
-    sym = torch.zeros((1, 10, 3), device="cuda")
+    dec = tv.ViterbiDecoder(3, (0o7, 0o5, 0o3, 0o6, 0o4), device="cuda")
+    sym = torch.zeros((1, 10, 5), device="cuda")
     with pytest.raises(ValueError):
         tv.viterbi_decode(sym, dec.exp_prev, dec.prev, dec.prev_bit)
+    dec = tv.ViterbiDecoder(8, (0o371, 0o233), device="cuda")
+    sym = torch.zeros((1, 10, 2), device="cuda")
+    with pytest.raises(ValueError):
+        tv.viterbi_decode(sym, dec.exp_prev, dec.prev, dec.prev_bit)
+
+
+@pytest.mark.cuda
+def test_dab_fic_decodes_with_one_launch_a_frame():
+    """`DabDemodulator.decode_fic` on the card: the four codewords are
+    the four rows of one launch, and the bits equal the CPU's."""
+    _need_card()
+    from sdrtpu_torch.decoders import dab
+
+    fibs = np.stack([dab.build_fib([dab.make_fig_1_1(0xC0DE, "ON CARD")])]
+                    * dab.FIBS_PER_FRAME)
+    dibits = dab.DabModulator().fic_to_symbols(fibs)
+    before = tv.viterbi_decode.launches
+    got, ok = dab.DabDemodulator(device="cuda").decode_fic(
+        torch.as_tensor(dibits, device="cuda"))
+    assert tv.viterbi_decode.launches == before + 1
+    want, _ = dab.DabDemodulator(device="cpu").decode_fic(dibits)
+    assert ok.all()
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, fibs)
