@@ -4,8 +4,8 @@
     python3 chip_smoke.py --profile FILE  # also writes the torch.profiler
                                           # tables of a steady window of
                                           # each path to FILE (fft),
-                                          # FILE.pallas, FILE.receiver
-                                          # and FILE.meteor
+                                          # FILE.pallas, FILE.receiver,
+                                          # FILE.meteor and FILE.pfb
 
 Phases, each fatal:
 
@@ -77,23 +77,46 @@ Phases, each fatal:
    examples/ryfi_link.py (six frames): payloads, callsigns and frame
    numbers those sent and the CPU's (RyFi: over its first 5 blocks);
    the CPU run's plain Costas, M&M and Viterbi calls are launched again
-   as the kernels on the card and held.
+   as the kernels on the card and held;
+18. pfb path: the flagship with ``channelizer_method="pfb"`` (the shared
+   polyphase filter bank: no hand kernel), the rotator on: every VFO's
+   tones, card vs CPU, Msps, the fold's device ms per block;
+19. paging path: ten POCSAG pages over the RF chain (`GfskMod` ->
+   `Gfsk`, one mm_scan a 4 800-sample block -> `PocsagDecoder`), every
+   page the one sent, the CPU's mm_scan calls held on the card; FLEX and
+   HRPT frames handed over as tensors on the card;
+20. vor path: five bearings, four 1 s blocks each, within 2 degrees,
+   card within 0.01 degree of the CPU;
+21. atv path: four PAL frames (625 x 945 samples), lines card vs CPU,
+   the active region against the image, the frame assembler;
+22. scanner path: the band scanner's selftest (two NFM stations found and
+   recorded, each WAV its station's tone);
+23. live path: network IQ (loopback TCP, i16, the native pump) into the
+   receiver path's VFO set and eight paced audio sinks for 8 s paced to
+   real time: every sample received, nothing dropped, no underrun after
+   the first second, the tones, chunk_poly and agc_scan launches exact,
+   card vs CPU on the first two blocks; the real-time factor and the
+   send-to-audio latency, with no profiler; the same bytes unpaced; 4 s
+   more under the profiler for the busy share; and a fake rtl_tcp
+   server at 2.4 Msps u8 into one WFM VFO for 5 s.
 
 Around each path's run every kernel's launch count is set to 0 and read,
 and must be exact for all seven kernels (fft: chunk_poly 32; pallas:
 mix_decimate 256; receiver, pll, meteor, rds, dab, falcon9, kg_sstv,
-m17 and ryfi: see their phases; every other count 0); then the same port
-runs on the CPU, and the card's output is held against it.
+m17, ryfi, paging and live: see their phases; pfb, vor, atv, scanner
+and rtl_tcp: none; every other count 0); then the same port runs on the
+CPU, and the card's output is held against it.
 
 Standard output: the card line, the ``kernels`` JSON line, the fft
 flagship line, the pallas path line, the receiver, pll, ctcss, meteor,
-rds, tf32, dab, falcon9, kg_sstv, m17 and ryfi lines, and last
-``{"ok": true, "device": {...}}``.
+rds, tf32, dab, falcon9, kg_sstv, m17, ryfi, pfb, paging, vor, atv, live
+and scanner lines, and last ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import os
 import re
@@ -154,6 +177,10 @@ def card_line() -> str:
          "--format=csv,noheader", "-i", smi_id()],
         capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+PROFILER_TAKES = 5
+TIMER_FALLBACKS: list[dict] = []  # device_ms calls timed by CUDA events
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -235,9 +262,15 @@ def device_ms(fn, reps: int, kernel: str | None = None) -> float:
     trace of back-to-back launches has been seen to hold only some of
     them (1 to 4 of 5 at tens of ms each), so busy time / reps would
     read low.  With ``kernel``, only the kernels whose name contains it.
-    A short trace is logged; one with no such launch is taken again."""
+    A short trace is logged; one with no such launch is taken again.  The
+    profiler has also been seen to lose every launch of a kernel over
+    three takes in a row, so after `PROFILER_TAKES` empty takes the calls
+    are timed with CUDA events instead (`cuda_ms`: the whole call, any
+    other kernel of ``fn`` and the host's enqueue rate included, so it
+    reads high) and the fallback is logged and counted in
+    `TIMER_FALLBACKS`."""
     fn()
-    for take in range(3):
+    for take in range(PROFILER_TAKES):
         prof, _, _ = profiled(lambda: [fn() for _ in range(reps)])
         by_name = {}
         for e in prof.events():
@@ -252,7 +285,11 @@ def device_ms(fn, reps: int, kernel: str | None = None) -> float:
         if by_name:
             return sum(us / n * -(-n // reps)
                        for n, us in by_name.values()) / 1e3
-    raise AssertionError(f"the profiler saw no {kernel or 'kernel'} launch")
+    ms = cuda_ms(fn, reps)
+    TIMER_FALLBACKS.append({"kernel": kernel, "reps": reps, "event_ms": ms})
+    log(f"device_ms: the profiler saw no {kernel or 'kernel'} launch in "
+        f"{PROFILER_TAKES} takes; CUDA events give {ms} ms a call")
+    return ms
 
 
 def phase_device() -> dict:
@@ -269,13 +306,21 @@ def phase_device() -> dict:
 
 
 def phase_build() -> dict:
-    from sdrtpu_torch import _build
+    """Every CUDA source with nvcc, then the native IO library with g++
+    (the live path's pump: it must be there, and built before the live
+    session, whose first connection would otherwise wait for g++)."""
+    from sdrtpu_torch import _build, native
 
     t0 = time.perf_counter()
     report = _build.build_all()
     log(f"build: {time.perf_counter() - t0:.2f} s")
     for name, r in report.items():
         log(f"  {name}: {r['seconds']:.2f} s cached={r['cached']}\n{r['log']}")
+    t0 = time.perf_counter()
+    if native.get_lib() is None:
+        raise AssertionError("the native IO library did not build")
+    log(f"native IO library: {time.perf_counter() - t0:.2f} s "
+        f"({native.lib_path().name})")
     return report
 
 
@@ -633,8 +678,9 @@ def phase_path(card: str, method: str, K: int = 256,
     state, (audio, spec) = pipe.scan_repeat(state, x, K)
     torch.cuda.synchronize()
     launches = {name: fn.launches for name, fn in counters.items()}
-    want = (expected_launches(chunk_poly=K // sub) if method == "fft"
-            else expected_launches(mix_decimate=K))
+    want = {"fft": expected_launches(chunk_poly=K // sub),
+            "pallas": expected_launches(mix_decimate=K),
+            "pfb": expected_launches()}[method]
     if launches != want:
         raise AssertionError(f"{method} path launched {launches}, want {want}")
 
@@ -662,10 +708,12 @@ def phase_path(card: str, method: str, K: int = 256,
     stereo = stereo_capture(pipe.offsets, 10_000_000.0, 2 * block)
     st_c = state_from_jax(host_state, "cpu")
     st_g = state
+    a_blocks = []
     for b in range(2):
         xb = stereo[b * block:(b + 1) * block]
         st_c, (a_cpu, s_cpu) = cpu_pipe(st_c, torch.as_tensor(xb))
         st_g, (a_gpu, s_gpu) = pipe(st_g, torch.as_tensor(xb, device="cuda"))
+        a_blocks.append(a_gpu.cpu().numpy())
     a_err = (a_gpu.cpu() - a_cpu).abs().max().item()
     if not a_err <= AUDIO_ATOL:
         raise AssertionError(f"{method}: card audio vs CPU: max_abs_err {a_err}")
@@ -678,6 +726,16 @@ def phase_path(card: str, method: str, K: int = 256,
     tail_err = (st_g["chan"]["fused"]["tail"].cpu()
                 - st_c["chan"]["fused"]["tail"]).abs().max().item()
     assert tail_err == 0.0, tail_err
+    # each VFO's left and right tones over the two stereo blocks (10 Hz
+    # bins; the tones are multiples of 10 Hz)
+    a2 = np.concatenate(a_blocks, axis=-1)
+    recovered = [[dominant_hz(a2[0, c]), dominant_hz(a2[1, c])]
+                 for c in range(a2.shape[1])]
+    for c, (left, right) in enumerate(recovered):
+        if abs(left - (400 + 150 * c)) > 10 or abs(right - (900 + 150 * c)) > 10:
+            raise AssertionError(f"{method}: VFO {c} recovered {left}, "
+                                 f"{right} Hz, sent {400 + 150 * c}, "
+                                 f"{900 + 150 * c}")
 
     # throughput: 5 more passes of K blocks, host clock around each
     passes = []
@@ -704,9 +762,30 @@ def phase_path(card: str, method: str, K: int = 256,
         log(f"profile -> {profile_path}")
 
     ch = pipe.channelizer
+    extra = {}
     if method == "fft":
         what = "skip_rotator"
         plan = [ch.fused.valid, ch.fused.ratio, ch.fused.nif, ch.fused.nfft]
+    elif method == "pfb":
+        what = "channelizer pfb, rotator on"
+        pf = ch.fused
+        plan = {"M": pf.M, "D": pf.D, "tpp": pf.tpp,
+                "fold_launches": 2 * pf.tpp - 1}
+        # the fold of one sub-window (2*tpp - 1 elementwise launches on a
+        # strided view), device time from the profiler, per block
+        F = sub * block // pf.D
+        ext = torch.zeros(pf.L - pf.D + sub * block, dtype=torch.complex64,
+                          device="cuda")
+        ext[pf.L - pf.D:] = x.repeat(sub)
+        fold_ms = device_ms(lambda: pf.fold(ext, F), 5) / sub
+        del ext
+        # the fold's least work a block: read the block once, write its
+        # F x M outputs once; 8 float32 operations a tap and output
+        bound = roofline(8 * block + 8 * (block // pf.D) * pf.M,
+                         8 * (block // pf.D) * pf.M * pf.tpp)
+        extra = {"fold_ms_per_block": fold_ms,
+                 "fold_bound_ms_per_block": bound["bound_ms"],
+                 "fold_bound_by": bound["bound_by"]}
     else:
         what = "channelizer pallas, rotator on"
         plan = [[ch.fused.decim, ch.fused.T]] + [
@@ -721,12 +800,14 @@ def phase_path(card: str, method: str, K: int = 256,
         "msps_passes": [K * block / t / 1e6 for t in passes],
         "ms_per_block": dt * 1e3 / K,
         "audio_std": a_std, "waterfall_max_db": wf_max,
+        "recovered_left_right_hz": recovered,
         "audio_vs_cpu_max_abs_err": a_err,
         "bench_capture_audio_vs_cpu_max_abs_err": bench_err,
         "waterfall_vs_cpu_max_abs_db": s_err,
         "device_busy_ms_per_block": busy_ms_block,
         "device_busy_share": busy_ms_block / (dt * 1e3 / K),
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        **extra,
         "card": card,
     }
 
@@ -932,7 +1013,10 @@ def receiver_capture(seed: int, n: int) -> np.ndarray:
     return x.astype(np.complex64)
 
 
-def build_receiver(device, scan_batch=1, sinks=True, spectrum=True):
+def build_receiver(device, scan_batch=1, sinks=True, spectrum=True,
+                   audio_sinks=None, baseband_sinks=None):
+    """The receiver path's VFO set; ``audio_sinks`` in place of the
+    collecting lists when given."""
     from sdrtpu_torch.apps.receiver import IQFrontend, Receiver, VfoConfig
 
     fe = IQFrontend(RX_FS, {n: VfoConfig(o, m)
@@ -940,10 +1024,11 @@ def build_receiver(device, scan_batch=1, sinks=True, spectrum=True):
                     fft_size=65536, fft_rate=20.0, device=device)
     audio = {n: [] for n in RX_VFOS}
     spec = []
-    rx = Receiver(fe, audio_sinks=({n: audio[n].append for n in audio}
-                                   if sinks else None),
+    if audio_sinks is None and sinks:
+        audio_sinks = {n: audio[n].append for n in audio}
+    rx = Receiver(fe, audio_sinks=audio_sinks,
                   spectrum_sink=spec.append if spectrum and sinks else None,
-                  scan_batch=scan_batch)
+                  baseband_sinks=baseband_sinks, scan_batch=scan_batch)
     return rx, audio, spec
 
 
@@ -2812,11 +2897,681 @@ def phase_ryfi(card: str) -> dict:
             "card": card}
 
 
+# The paging, VOR, ATV, live, rtl_tcp and scanner paths.
+PAGING_FS, PAGING_BAUD, PAGING_DEV = 24000.0, 1200.0, 4500.0
+PAGING_BLOCK = 4800        # 200 ms
+PAGES = [  # (address, text, numeric, frame): distinct addresses and frames
+    (0x1F4, "RF OK", False, 1), (0x2A5F8, "0123456789", True, 3),
+    (0x12345, "HELLO PAGER", False, 2), (0x0BEEF, "*U-][ 42", True, 5),
+    (0x54321, "THE QUICK BROWN FOX JUMPS OVER THE LAZY DOG 0123456789 END",
+     False, 6), (0x3FFF8, "911", True, 7), (0x00208, "TEST42", False, 0),
+    (0x1C0DE, "5551234567", True, 4), (0x2BEE0, "SDR PAGE 9 OF 10", False, 1),
+    (0x3A5A0, "10-4", True, 2)]
+VOR_FS = 25000.0
+VOR_BEARINGS = (0.0, 45.0, 137.5, 270.0, 359.0)  # tests/test_vor.py:10
+VOR_BLOCKS = 4             # of 1 s
+ATV_FRAMES = 4             # one PAL frame (625 lines x 945 samples) a block
+ATV_FS = 625 * 945 * 25.0  # 14.765 625 Msps
+ATV_LINES_ATOL = 1e-4      # card vs CPU, as tests/test_torch_atv.py
+# the active region vs the image sent: the gather interpolates at the
+# estimated sub-sample phase (within ~0.02 sample of the true one), so a
+# pixel step of up to 0.9 moves by up to ~0.02
+ATV_ACTIVE_ATOL = 0.05
+LIVE_SECONDS = 8.0         # 80 M samples, 320 MB of i16 on the wire
+LIVE_PROFILED_SECONDS = 4.0  # the profiled paced session (busy share)
+LIVE_CHUNK_S = 0.02        # the sender's 20 ms chunks
+RTL_FS = 2_400_000.0       # an RTL-SDR's usual rate
+RTL_SECONDS = 5.0
+RTL_OFFSET = 300_000.0
+
+
+def phase_paging(card: str) -> dict:
+    """POCSAG over tests/test_pocsag.py:63-87's RF chain, from the port's
+    transmitter on the card: ten pages (alpha and numeric, distinct
+    addresses and frames) -> `GfskMod` -> `Gfsk` (float mm_scan, one
+    launch a block of PAGING_BLOCK) -> `PocsagDecoder` (host), every page
+    the one sent; the port on the CPU decodes the same pages and its
+    plain mm_scan calls are launched again as the kernel and held.  FLEX
+    and HRPT are host layers: their frames from `build_flex_frame` /
+    `build_frame`, handed over as tensors on the card, come back."""
+    from sdrtpu_torch.decoders import flex, hrpt, pocsag
+    from sdrtpu_torch.kernels import mod, psk
+
+    sps = int(PAGING_FS / PAGING_BAUD)
+    bits = np.concatenate([pocsag.build_transmission(
+        a, t, pocsag.MESSAGE_NUMERIC if num else pocsag.MESSAGE_ALPHA, f)
+        for a, t, num, f in PAGES] + [np.zeros(32, np.uint8)])
+    sym = 1.0 - 2.0 * bits.astype(np.float32)  # 0 -> +dev, 1 -> -dev
+    kw = dict(rrc_tap_count=2 * sps + 1, rrc_beta=0.9)
+    tx = mod.GfskMod(sps, PAGING_DEV, PAGING_FS, device="cuda", **kw)
+    x = tx(tx.init_state(), torch.as_tensor(sym, device="cuda"))[1].cpu()
+    blocks = list(torch.split(x, PAGING_BLOCK))
+
+    def receive(device, timed=False):
+        rx = psk.Gfsk(PAGING_BAUD, PAGING_FS, PAGING_DEV, omega_gain=1e-4,
+                      mu_gain=0.05, device=device, **kw)
+        dec = pocsag.PocsagDecoder()
+        st = rx.init_state()
+        t0 = time.perf_counter()
+        for b in blocks:
+            st, (syms, valid) = rx(st, b.to(device))
+            dec.process(syms[valid] < 0)  # to the host here
+        dec.flush()
+        return dec.messages, time.perf_counter() - t0
+
+    counters = kernel_counters()
+    receive("cuda")  # warm-up
+    for fn in counters.values():
+        fn.launches = 0
+    msgs, wall = receive("cuda")
+    launches = {name: fn.launches for name, fn in counters.items()}
+    want = expected_launches(mm_scan=len(blocks))
+    sent = [((a & ~7) | f, t) for a, t, _, f in PAGES]
+    got = [(a, t) for a, _, t in msgs]
+    # a numeric page's last codeword is padded with "0" digits
+    ok = (len(got) == len(sent) and all(
+        ga == sa and gt.startswith(st) and (num or gt == st)
+        for (ga, gt), (sa, st), (_, _, num, _) in zip(got, sent, PAGES)))
+    if launches != want or not ok:
+        raise AssertionError(f"paging: launched {launches} (want {want}); "
+                             f"decoded {got}, sent {sent}")
+    with recording("mm_scan") as calls:
+        msgs_cpu, cpu_s = receive("cpu")
+    if msgs_cpu != msgs:
+        raise AssertionError(f"paging: CPU decoded {msgs_cpu}, card {msgs}")
+    check = hold_recorded("mm_scan", calls["mm_scan"], "the paging path")
+    prof, p_wall, busy_us = profiled(lambda: receive("cuda"))
+
+    flex_msgs = [(0x12345, "HELLO FLEX"), (0x0BEEF, "SDR ON THE CARD")]
+    fdec = flex.FlexDecoder()
+    fbits = torch.as_tensor(flex.build_flex_frame(2, 77, flex_msgs),
+                            device="cuda")
+    fgot = [(m.address, m.text) for m in fdec.process(fbits)]
+    img = np.random.default_rng(31).integers(0, 1024, (5, 2048)).astype(
+        np.uint16)
+    frame = hrpt.build_frame(img)
+    hframes = hrpt.HrptDeframer().process(
+        torch.as_tensor(hrpt.unpack_words(frame), device="cuda"))
+    if fgot != flex_msgs or len(hframes) != 1 or not np.array_equal(
+            hrpt.avhrr_lines(hframes[0]), img):
+        raise AssertionError(f"paging: FLEX {fgot}, HRPT {len(hframes)} "
+                             "frames from tensors on the card")
+    seconds = x.numel() / PAGING_FS
+    return {"paging": f"POCSAG {PAGING_BAUD:.0f} baud at {PAGING_FS:.0f} "
+                      f"sps, {PAGING_DEV:.0f} Hz deviation, {len(PAGES)} "
+                      f"pages, {len(blocks)} blocks of {PAGING_BLOCK}",
+            "pages": len(got), "pages_equal": True, "cpu_equal": True,
+            "kernel_launches": launches, "kernel_check": check,
+            "flex_frames_equal": True, "hrpt_frames_equal": True,
+            "ms_per_block": wall * 1e3 / len(blocks),
+            "real_time_factor": seconds / wall,
+            "device_busy_share": busy_us / 1e3 / (p_wall * 1e3),
+            "cpu_seconds": cpu_s, "card": card}
+
+
+def angle_deg(a: float, b: float) -> float:
+    """The angle between two bearings, in degrees."""
+    d = abs(a - b) % 360.0
+    return min(d, 360.0 - d)
+
+
+def phase_vor(card: str) -> dict:
+    """VOR bearings (tests/test_vor.py:10's five) at 25 kHz, VOR_BLOCKS
+    blocks of 1 s each, `VorReceiver` on the card and on the CPU: every
+    bearing within 2 degrees of the one sent, the card's within 0.01
+    degree of the CPU's; no hand kernel."""
+    from sdrtpu_torch.decoders import vor
+
+    n = int(VOR_FS)
+    counters = kernel_counters()
+    rows, walls = [], []
+    for bearing in VOR_BEARINGS:
+        x = vor.synthesize_vor(bearing, VOR_FS, seconds=VOR_BLOCKS)
+        rc = vor.VorReceiver(VOR_FS, device="cuda")
+        rh = vor.VorReceiver(VOR_FS, device="cpu")
+        sc, sh = rc.init_state(), rh.init_state()
+        rc(sc, torch.as_tensor(x[:n], device="cuda"))  # warm-up
+        for fn in counters.values():
+            fn.launches = 0
+        got = []
+        for b in range(VOR_BLOCKS):
+            blk = x[b * n:(b + 1) * n]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sc, (dc, ac) = rc(sc, torch.as_tensor(blk, device="cuda"))
+            dc = float(dc)
+            walls.append(time.perf_counter() - t0)
+            sh, (dh, _) = rh(sh, torch.as_tensor(blk))
+            got.append({"card_deg": dc, "cpu_deg": float(dh),
+                        "error_deg": angle_deg(dc, bearing),
+                        "card_vs_cpu_deg": angle_deg(dc, float(dh)),
+                        "amplitude": float(ac)})
+        launches = {name: fn.launches for name, fn in counters.items()}
+        if launches != expected_launches() or any(
+                g["error_deg"] >= 2.0 or g["card_vs_cpu_deg"] >= 0.01
+                for g in got):
+            raise AssertionError(f"vor: bearing {bearing}: {got}, "
+                                 f"launched {launches}")
+        rows.append({"sent_deg": bearing, "blocks": got})
+    ms = float(np.median(walls)) * 1e3
+    return {"vor": f"VOR at {VOR_FS:.0f} Hz, {len(VOR_BEARINGS)} bearings x "
+                   f"{VOR_BLOCKS} blocks of 1 s",
+            "bearings": rows,
+            "max_error_deg": max(g["error_deg"] for r in rows
+                                 for g in r["blocks"]),
+            "max_card_vs_cpu_deg": max(g["card_vs_cpu_deg"] for r in rows
+                                       for g in r["blocks"]),
+            "kernel_launches": expected_launches(),
+            "ms_per_block": ms, "real_time_factor": 1e3 / ms, "card": card}
+
+
+def atv_cadence() -> np.ndarray:
+    """tests/test_atv.py::test_interlaced_field_assembly's 625-line PAL
+    cadence: an even field, an odd field, the next even field."""
+    from sdrtpu_torch.decoders import atv
+
+    def line(kind, value=0.5):
+        row = np.zeros(atv.LINE_SIZE, np.float32)
+        if kind == "video":
+            row[:atv.SYNC_LEN] = atv.SYNC_LEVEL
+            row[atv.ACTIVE_START:] = value
+        elif kind == "short":
+            row[:35] = atv.SYNC_LEVEL
+        elif kind == "long":
+            row[:atv.LINE_SIZE - 25] = atv.SYNC_LEVEL
+        return row
+
+    even_seq, odd_seq = [0, 1, 1, 2, 2, 2, 1, 1], [1, 1, 1, 2, 2, 1, 1, 1]
+    kind = {0: "video", 1: "short", 2: "long"}
+    lines = [line("video", 0.1)] * 4
+    lines += [line(kind[c]) for c in even_seq]
+    lines += [line("video", 0.25)] * 305
+    lines += [line(kind[c]) for c in odd_seq]
+    lines += [line("video", 0.75)] * 304
+    lines += [line(kind[c]) for c in even_seq]
+    return np.stack(lines)
+
+
+def phase_atv(card: str) -> dict:
+    """ATV at full PAL width: `synthesize_atv` of a seeded image, 625
+    lines of 945 samples a frame (14.77 Msps), ATV_FRAMES frames, one
+    frame a block through `AtvVideoDemod` + `AtvLineSync` on the card and
+    on the CPU: lines within ATV_LINES_ATOL, the active region the image
+    sent; the frame assembler fed the reference test's 625-line cadence
+    (a tensor on the card) returns its frame; no hand kernel."""
+    from sdrtpu_torch.decoders import atv
+
+    L, rows = atv.LINE_SIZE, 625
+    rng = np.random.default_rng(14)
+    img = rng.uniform(0.1, 0.9, (ATV_FRAMES * rows, 256))
+    img[:, :24] = 1.0  # a white bar: the 99th percentile is white
+    x = atv.synthesize_atv(img)
+    n = rows * L
+    active = atv.SYNC_LEN + 30
+    want = np.stack([np.interp(np.linspace(0, img.shape[1] - 1, L - active),
+                               np.arange(img.shape[1]), r) for r in img])
+    counters = kernel_counters()
+    demod = atv.AtvVideoDemod()
+    sync_c = atv.AtvLineSync(device="cuda")
+    sync_h = atv.AtvLineSync(device="cpu")
+    sync_c(sync_c.init_state(), demod((), torch.as_tensor(
+        x[:n], device="cuda"))[1])  # warm-up
+    for fn in counters.values():
+        fn.launches = 0
+    sc, sh = sync_c.init_state(), sync_h.init_state()
+    lines_err = act_err = 0.0
+    card_ms, frame_ms, phases = [], [], []
+    asm = atv.AtvFrameAssembler()
+    for f in range(ATV_FRAMES):
+        blk = x[f * n:(f + 1) * n]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, video = demod((), torch.as_tensor(blk, device="cuda"))
+        sc, lines_c = sync_c(sc, video)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        asm.process(lines_c)  # the host's share: fetch, classify, place
+        frame_ms.append((time.perf_counter() - t0) * 1e3)
+        card_ms.append((t1 - t0) * 1e3)
+        phases.append(float(atv.line_phase(video)))
+        _, video_h = demod((), torch.as_tensor(blk))
+        sh, lines_h = sync_h(sh, video_h)
+        lc = lines_c.cpu().numpy()
+        lines_err = max(lines_err, float(np.abs(lc - lines_h.numpy()).max()))
+        # the carried tail delays the lines by one: line r of the output
+        # is line r - 1 of the block (line 0, the last of the one before)
+        act_err = max(act_err, float(np.abs(
+            lc[1:, active:] - want[f * rows:(f + 1) * rows - 1]).max()))
+    launches = {name: fn.launches for name, fn in counters.items()}
+    frames = atv.AtvFrameAssembler().process(
+        torch.as_tensor(atv_cadence(), device="cuda"))
+    ok = (len(frames) >= 1 and abs(frames[-1][0:500:2].mean() - 0.25) < 0.02
+          and abs(frames[-1][1:500:2].mean() - 0.75) < 0.02)
+    if (launches != expected_launches() or lines_err > ATV_LINES_ATOL
+            or act_err > ATV_ACTIVE_ATOL or not ok):
+        raise AssertionError(
+            f"atv: lines vs CPU {lines_err}, active region vs image "
+            f"{act_err}, assembler frames {len(frames)}, launched "
+            f"{launches}")
+    ms = float(np.median(frame_ms))
+    return {"atv": f"PAL {rows} lines x {L} samples ({ATV_FS / 1e6:.3f} "
+                   f"Msps), {ATV_FRAMES} frames, one a block",
+            "lines_vs_cpu_max_abs_err": lines_err,
+            "lines_tol": ATV_LINES_ATOL,
+            "active_vs_image_max_abs_err": act_err,
+            "active_tol": ATV_ACTIVE_ATOL,
+            "line_phase": phases, "assembler_frames": len(frames),
+            "kernel_launches": launches,
+            "card_ms_per_frame": float(np.median(card_ms)),
+            "ms_per_frame": ms, "real_time_factor": 40.0 / ms, "card": card}
+
+
+def logged_paced_backend():
+    """A `PacedNullBackend` that also notes the stream position (s of
+    audio) of each underrun."""
+    from sdrtpu_torch.io.audio_sink import PacedNullBackend
+
+    class Logged(PacedNullBackend):
+        def __init__(self):
+            super().__init__(48000.0)
+            self.underrun_at: list[float] = []
+
+        def write(self, packet):
+            before = self.underruns
+            super().write(packet)
+            if self.underruns != before:
+                self.underrun_at.append(self.frames_written / self.samplerate)
+
+    return Logged()
+
+
+def live_checks(where, run, sender, launches, want, sinks,
+                pump=None) -> dict:
+    """The live path's common checks; returns what they measured.
+    ``pump``: the `NetworkSource` that must have read through the native
+    pump and dropped nothing (None for rtl_tcp, whose reader is Python)."""
+    underrun_at = {n: s.sink.backend.underrun_at for n, s in sinks.items()}
+    late = {n: [t for t in v if t > 1.0] for n, v in underrun_at.items()}
+    problems = []
+    if run["pushed"] != sender.total_samples:
+        problems.append(f"pushed {run['pushed']} of "
+                        f"{sender.total_samples} sent")
+    if pump is not None and pump.readers != ["native"]:
+        problems.append(f"readers {pump.readers}")
+    if pump is not None and pump.dropped_bytes:
+        problems.append(f"dropped {pump.dropped_bytes} bytes")
+    if any(late.values()):
+        problems.append(f"underruns after the first second {late}")
+    if launches != want:
+        problems.append(f"launched {launches}, want {want}")
+    if problems:
+        raise AssertionError(f"{where}: " + "; ".join(problems))
+    return {"underruns_at_s": underrun_at}
+
+
+def phase_live(card: str, receiver_msps: float) -> dict:
+    """The live edge on the card: a transmitter process's
+    `IqExporter("tcp-client")` over loopback into `NetworkSource("tcp")`
+    (i16, the native pump), the receiver
+    path's VFO set (`build_receiver`, 2 000 000-sample blocks), each VFO
+    into an `AudioSink` on the paced headless backend, played out on its
+    own thread; LIVE_SECONDS of the receiver capture's i16 bytes (one
+    block's, computed once and replayed) sent in 20 ms chunks paced to
+    real time.  Then the same bytes unpaced, a short paced session under
+    the profiler for the card's busy share (the latency and the
+    real-time factor come from the unprofiled one), and the rtl_tcp
+    case."""
+    from sdrtpu_torch.apps import live_radio as live
+    from sdrtpu_torch.io.audio_sink import AudioSink
+    from sdrtpu_torch.io.net import NetworkSource, iq_to_bytes
+    from torch.profiler import ProfilerActivity, profile
+
+    x = receiver_capture(11, RX_BLOCK)  # 200 ms; replays without a seam
+    wire = iq_to_bytes(x, "i16")
+    chunk = int(RX_FS * LIVE_CHUNK_S)
+
+    t_phase = time.perf_counter()
+
+    def mark(what):
+        log(f"live: {what} at {time.perf_counter() - t_phase:.1f} s")
+
+    def session(seconds: float, paced: bool, profiled: bool = False):
+        n_chunks = int(round(seconds / LIVE_CHUNK_S))
+        blocks = n_chunks * chunk // RX_BLOCK
+        src = NetworkSource("tcp", "127.0.0.1", 0)
+        first, last, received = {}, {}, []
+        sinks = {}
+        if paced:
+            # jitter buffer: half a block of audio (the receiver hands
+            # its sinks one 200 ms block at a time)
+            lat = int(np.ceil(0.5 * RX_BLOCK / RX_FS * 48000 / 512))
+            sinks = {n: live.PlayoutSink(AudioSink(
+                48000.0, backend=logged_paced_backend(), latency_packets=lat))
+                for n in RX_VFOS}
+
+        def tap(name):
+            def sink(a):
+                first.setdefault(name, [])
+                if len(first[name]) < RX_CPU_BLOCKS:
+                    first[name].append(a)
+                last[name] = a
+                if paced:
+                    sinks[name](a)
+            return sink
+
+        def keep(b):
+            if len(received) < RX_CPU_BLOCKS:
+                received.append(np.array(b))
+
+        rx, _, _ = build_receiver(
+            "cuda", audio_sinks={n: tap(n) for n in RX_VFOS},
+            baseband_sinks=[keep])
+        rx.warmup()
+        counters = kernel_counters()
+        for fn in counters.values():
+            fn.launches = 0
+        # unpaced: as fast as the receiver takes it, at most two blocks
+        # ahead (the pump drops what its ring cannot hold, as a live
+        # source must, so an unbounded sender would measure drops)
+        sender = live.Transmitter(wire, chunk, n_chunks, RX_FS,
+                                  connect=("127.0.0.1", src.port),
+                                  window=None if paced else 2 * RX_BLOCK)
+        seen = {"lag": None}
+
+        def on_push(pushed):
+            sender.consumed.value = pushed
+            if sender.done.is_set() and seen["lag"] is None:
+                seen["lag"] = sender.total_samples - pushed
+
+        # the interpreter's collector pauses over the run: generation,
+        # ms, start on the host's monotonic clock
+        pauses = []
+
+        def gc_pause(phase, info):
+            if phase == "start":
+                seen["gc_t0"] = time.monotonic()
+            else:
+                pauses.append((info["generation"],
+                               (time.monotonic() - seen["gc_t0"]) * 1e3,
+                               seen["gc_t0"]))
+
+        gc.callbacks.append(gc_pause)
+        # a profiled run is traced from before the first send to after
+        # the last block (the profiler's start and stop stall the
+        # interpreter for long enough to overflow the pump's ring)
+        prof = None
+        if profiled:
+            prof = profile(activities=[ProfilerActivity.CUDA])
+            prof.start()
+        run_t0 = time.monotonic()
+        sender.start()
+        run = live.stream(src, rx, sender.total_samples,
+                          timeout_s=3 * seconds + 60, on_push=on_push)
+        torch.cuda.synchronize()
+        launches = {name: fn.launches for name, fn in counters.items()}
+        gc.callbacks.remove(gc_pause)
+        # the sinks play their last block out before the profiler stops
+        # (its stop holds the interpreter while it gathers the trace) and
+        # before the transmitter's exit is awaited: their close writes
+        # the last part packet, which is late if the close is
+        for s in sinks.values():
+            s.close()
+        sender.join(30.0)
+        busy_us = None
+        if profiled:
+            prof.stop()
+            busy_us = sum(e.time_range.elapsed_us() for e in prof.events()
+                          if e.device_type == torch.autograd.DeviceType.CUDA)
+        src.close()
+        if seen["lag"] is None:
+            seen["lag"] = sender.total_samples - run["pushed"]
+        # pauses over 20 ms, each with its start in s after the first
+        # sample: only one between the first push and the sinks' last
+        # packet can delay a packet
+        long = [(g, ms, t - run["t_first"]) for g, ms, t in pauses if ms > 20]
+        seen["collector_pauses"] = {
+            "count": len(pauses),
+            "max_ms": max((ms for _, ms, _ in pauses), default=0.0),
+            "over_20_ms_gen_ms_at_s": long}
+        kind = ("profiled " if profiled else "") + ("paced" if paced
+                                                    else "unpaced")
+        mark(f"{kind} session ({blocks} blocks), first sample "
+             f"{run['t_first'] - run_t0:.1f} s after the transmitter's start,"
+             f" collector {seen['collector_pauses']}")
+        want = expected_launches(chunk_poly=2 * blocks, agc_scan=3 * blocks)
+        checks = live_checks(f"live {kind}", run, sender, launches, want,
+                             sinks, pump=src)
+        # paced, the receive backlog when the last chunk is sent is at
+        # most a block (unpaced, the sender runs up to two ahead)
+        if paced and seen["lag"] > RX_BLOCK:
+            raise AssertionError(
+                f"live {kind}: {seen['lag']} samples behind when the sender "
+                "finished (more than one block)")
+        elapsed = run["t_end"] - run["t_first"]
+        rec = {"blocks": blocks, "samples_sent": sender.total_samples,
+               "samples_received": run["pushed"], "reader": src.readers,
+               "dropped_bytes": src.dropped_bytes,
+               "behind_at_last_send_samples": seen["lag"],
+               "kernel_launches": launches,
+               "collector_pauses": seen["collector_pauses"]}
+        if paced:
+            lat = live.latencies(sender, sinks["w0"].arrivals, RX_BLOCK)
+            rec.update({
+                "real_time_factor": run["pushed"] / RX_FS / elapsed,
+                "push_busy_share": run["push_s"] / elapsed,
+                "latency_ms_median": float(np.median(lat)) * 1e3,
+                "latency_ms_p95": float(np.percentile(lat, 95)) * 1e3,
+                "audio_latency_packets":
+                    sinks["w0"].sink.backend.latency * 48000 / 512,
+                "underruns": {n: s.sink.backend.underruns
+                              for n, s in sinks.items()},
+                **checks})
+        else:
+            rec["msps"] = (run["pushed"] / (run["t_end"] - sender.log[0][1])
+                           / 1e6)
+        if profiled:
+            rec["device_busy_share"] = busy_us / 1e6 / elapsed
+            rec["device_busy_ms_per_block"] = busy_us / 1e3 / blocks
+        assert rx.block_len == RX_BLOCK, rx.block_len
+        return rec, first, last, received
+
+    paced_rec, first, last, received = session(LIVE_SECONDS, paced=True)
+    tones = {}
+    for name, (_, mode) in RX_VFOS.items():
+        f1, f2 = rx_tones(name)
+        a = last[name]
+        if mode == "wfm":
+            tones[name] = [dominant_hz(a[0]), dominant_hz(a[1])]
+            ok = abs(tones[name][0] - f1) < 6.0 and abs(tones[name][1] - f2) < 6.0
+        else:
+            expect = {"nfm": f1, "am": f1, "usb": f1 + 1400.0,
+                      "cw": 820.0}[mode]
+            tones[name] = [dominant_hz(a[0])]
+            ok = abs(tones[name][0] - expect) < 6.0
+        if not ok:
+            raise AssertionError(f"live: VFO {name} ({mode}) recovered "
+                                 f"{tones[name]}")
+    # the port on the CPU over the first received blocks
+    cpu_rx, cpu_audio, _ = build_receiver("cpu", spectrum=False)
+    for b in received:
+        cpu_rx.push(b)
+    cpu_rx.flush()
+    errs = {}
+    for name, (_, mode) in RX_VFOS.items():
+        got = np.concatenate(first[name], axis=-1)
+        ref = np.concatenate(cpu_audio[name], axis=-1)
+        peak = float(np.abs(ref).max())
+        err = float(np.abs(got - ref)[..., RX_SKIP:].max())
+        tol = (AUDIO_ATOL if mode in ("wfm", "nfm")
+               else RX_AGC_RTOL * max(peak, 1.0))
+        errs[name] = {"max_abs_err": err, "tol": tol}
+        if not err <= tol:
+            raise AssertionError(f"live: card vs CPU, VFO {name}: "
+                                 f"{errs[name]}")
+    del cpu_rx, cpu_audio, first, last, received
+    mark("card vs CPU")
+
+    # the same bytes unpaced: socket -> pump -> conversion -> receiver
+    unpaced, *_ = session(LIVE_SECONDS, paced=False)
+    unpaced["receiver_phase_push_only_msps"] = receiver_msps
+    # the card's busy share, from a short paced session under the profiler
+    profiled, *_ = session(LIVE_PROFILED_SECONDS, paced=True, profiled=True)
+    # the command line's own selftest (1 Msps, one WFM VFO, 3 s), its
+    # record to the log
+    with contextlib.redirect_stdout(sys.stderr):
+        rc = live.main(["--selftest", "3", "--device", "cuda"])
+    if rc != 0:
+        raise AssertionError("python -m sdrtpu_torch.apps.live_radio "
+                             "--selftest 3 failed")
+    mark("live_radio --selftest 3")
+    return {"live": f"network IQ (i16, loopback TCP, native pump) -> receiver "
+                    f"({RX_FS / 1e6:.0f} Msps, 8 VFOs, {RX_BLOCK}-sample "
+                    f"blocks) -> 8 paced audio sinks, {LIVE_SECONDS:.0f} s in "
+                    f"{LIVE_CHUNK_S * 1e3:.0f} ms chunks",
+            "kernel_launches": paced_rec["kernel_launches"],
+            "paced": paced_rec, "recovered": tones,
+            "audio_vs_cpu": errs, "audio_vs_cpu_blocks": RX_CPU_BLOCKS,
+            "unpaced": unpaced, "profiled_paced": profiled,
+            "cli_selftest": "OK", "rtl_tcp": phase_rtl_tcp(), "card": card}
+
+
+def phase_rtl_tcp() -> dict:
+    """A fake rtl_tcp server (tests/test_io_extras.py:16's header and
+    command protocol) streaming RTL_SECONDS of u8 IQ at 2.4 Msps, paced
+    to real time, into `RtlTcpClient` -> `Receiver` (one stereo WFM VFO)
+    -> a paced `AudioSink`: every sample, no underrun after the first
+    second, the station's tones, card vs CPU on the first two blocks; no
+    hand kernel on this path (a lone VFO's own DDC)."""
+    import struct
+
+    from sdrtpu_torch.apps import live_radio as live
+    from sdrtpu_torch.apps.receiver import IQFrontend, Receiver, VfoConfig
+    from sdrtpu_torch.io.audio_sink import AudioSink
+    from sdrtpu_torch.io.net import bytes_to_iq, iq_to_bytes
+    from sdrtpu_torch.io.rtl_tcp import RtlTcpClient
+
+    n = int(RTL_FS * RTL_SECONDS)
+    wire = iq_to_bytes(live.make_station(RTL_FS, RTL_OFFSET, n), "u8")
+    chunk = int(RTL_FS * LIVE_CHUNK_S)
+
+    def build(device, sinks):
+        fe = IQFrontend(RTL_FS, {"v0": VfoConfig(RTL_OFFSET, "wfm")},
+                        spectrum=False, device=device)
+        return Receiver(fe, audio_sinks=sinks)
+
+    sink = live.PlayoutSink(AudioSink(48000.0, backend=logged_paced_backend(),
+                                      latency_packets=10))
+    audio = []
+
+    def tap(a):
+        audio.append(a)
+        sink(a)
+
+    rx = build("cuda", {"v0": tap})
+    rx.warmup()
+    counters = kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    # the server: dongle info (tuner type 5, R820T; 29 gain steps), then
+    # the samples paced to real time
+    sender = live.Transmitter(wire, chunk, n // chunk, RTL_FS, fmt="u8",
+                              header=b"RTL0" + struct.pack(">II", 5, 29)
+                              ).start()
+    cli = RtlTcpClient("127.0.0.1", sender.port)
+    cli.set_sample_rate(RTL_FS)
+    cli.set_frequency(100e6)
+    run = live.stream(cli, rx, sender.total_samples,
+                      timeout_s=3 * RTL_SECONDS + 60)
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    sink.close()  # before the wait for the transmitter's exit, as live's
+    sender.join(30.0)
+    cli.close()
+    checks = live_checks("rtl_tcp", run, sender, launches,
+                         expected_launches(), {"v0": sink})
+    left, right = dominant_hz(audio[-2][0]), dominant_hz(audio[-2][1])
+    if abs(left - 440.0) > 6.0 or abs(right - 1200.0) > 6.0:
+        raise AssertionError(f"rtl_tcp: recovered {left}, {right} Hz")
+    # the port on the CPU over the first two blocks of the same bytes
+    cpu_audio = []
+    cpu_rx = build("cpu", {"v0": cpu_audio.append})
+    cpu_rx.push(bytes_to_iq(wire[:4 * rx.block_len], "u8"))
+    cpu_rx.flush()
+    err = float(np.abs(np.concatenate(audio[:2], axis=-1)
+                       - np.concatenate(cpu_audio, axis=-1))[..., RX_SKIP:]
+                .max())
+    if not err <= AUDIO_ATOL:
+        raise AssertionError(f"rtl_tcp: card vs CPU audio {err}")
+    lat = live.latencies(sender, sink.arrivals, rx.block_len)
+    elapsed = run["t_end"] - run["t_first"]
+    return {"rtl_tcp": f"fake rtl_tcp server, u8 at {RTL_FS / 1e6:.1f} Msps, "
+                       f"one stereo WFM VFO, {RTL_SECONDS:.0f} s paced",
+            "block_len": rx.block_len, "samples_sent": sender.total_samples,
+            "samples_received": run["pushed"], "kernel_launches": launches,
+            "recovered_hz": [left, right], "audio_vs_cpu_max_abs_err": err,
+            "real_time_factor": run["pushed"] / RTL_FS / elapsed,
+            "push_busy_share": run["push_s"] / elapsed,
+            "latency_ms_median": float(np.median(lat)) * 1e3,
+            "latency_ms_p95": float(np.percentile(lat, 95)) * 1e3,
+            "underruns": sink.sink.backend.underruns, **checks}
+
+
+def phase_scanner(card: str) -> dict:
+    """examples/band_scanner.py's selftest through the port's
+    `apps.band_scanner.scan` on the card: 1 Msps, two NFM stations among
+    silent channels, the example's scanner settings; both stations found
+    and recorded, each WAV's dominant tone its station's; no hand kernel
+    (a lone NFM VFO's own DDC)."""
+    import shutil
+
+    from sdrtpu_torch.apps import band_scanner as bs
+    from sdrtpu_torch.io import wav
+
+    fs = 1_000_000.0
+    iq = bs.selftest_band(fs)
+    out_dir = os.path.join("build", "chip_smoke", "scan")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    counters = kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    res = bs.scan(iq, fs, out_dir, -400_000.0, 400_000.0, 100_000.0, -40.0,
+                  device="cuda", log=log)
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    recorded = {}
+    for (f0, tone, *_), path in zip(bs.SELFTEST_STATIONS,
+                                    sorted(res["paths"], key=lambda p: int(
+                                        os.path.basename(p)[4:-6]))):
+        info, data = wav.read_wav(path)
+        hz = dominant_hz(data[:, 0])
+        recorded[os.path.basename(path)] = {"frames": int(data.shape[0]),
+                                            "dominant_hz": hz,
+                                            "station_tone_hz": tone}
+        if (info.channels != 2 or data.shape[0] <= 4800
+                or abs(hz - tone) > 6.0):
+            raise AssertionError(f"scanner: {path}: {recorded}")
+    if (res["hits"] != sorted(round(f0) for f0, *_ in bs.SELFTEST_STATIONS)
+            or len(res["paths"]) != 2 or launches != expected_launches()):
+        raise AssertionError(f"scanner: hits {res['hits']}, recordings "
+                             f"{res['paths']}, launched {launches}")
+    return {"scanner": "1 Msps, two NFM stations among silent channels, "
+                       "scan -400..400 kHz every 100 kHz at -40 dB",
+            "hits_hz": res["hits"], "recordings": recorded,
+            "block_len": res["block_len"], "kernel_launches": launches,
+            "seconds": wall, "real_time_factor": iq.size / fs / wall,
+            "card": card}
+
+
 def main(argv) -> int:
     t_start = time.perf_counter()
+    paths = {}
 
     def done(what):
         log(f"phase {what}: done at {time.perf_counter() - t_start:.1f} s")
+        if what.endswith(" path") and what[:-5] in paths:
+            log(json.dumps(paths[what[:-5]]))
 
     dev = phase_device()
     built = phase_build()
@@ -2836,7 +3591,6 @@ def main(argv) -> int:
     done("viterbi rates and mm_scan banks")
     profile_path = (argv[argv.index("--profile") + 1]
                     if "--profile" in argv else None)
-    paths = {}
     for method, kernel in (("fft", "chunk_poly"), ("pallas", "mix_decimate")):
         torch.cuda.reset_peak_memory_stats()
         paths[method] = phase_path(
@@ -2869,6 +3623,17 @@ def main(argv) -> int:
                         ("ryfi", phase_ryfi)):
         paths[name] = phase(dev["card"])
         done(f"{name} path")
+    torch.cuda.reset_peak_memory_stats()
+    paths["pfb"] = phase_path(
+        dev["card"], "pfb", profile_path=(profile_path + ".pfb"
+                                          if profile_path else None))
+    done("pfb path")
+    for name, phase in (("paging", phase_paging), ("vor", phase_vor),
+                        ("atv", phase_atv), ("scanner", phase_scanner)):
+        paths[name] = phase(dev["card"])
+        done(f"{name} path")
+    paths["live"] = phase_live(dev["card"], paths["receiver"]["msps"])
+    done("live path")
     for k in kernels:
         if k["name"] in ("costas_scan", "mm_scan", "viterbi_decode"):
             k["launches"] = paths["meteor"]["kernel_launches"][k["name"]]
@@ -2900,6 +3665,12 @@ def main(argv) -> int:
             k["dab_path"] = {**paths["dab"]["viterbi_at_path_shape"],
                              "path_check": paths["dab"]["kernel_check"]}
         if k["name"] == "mm_scan":
+            k["paging_path_launches"] = paths["paging"]["kernel_launches"][
+                "mm_scan"]
+            k["paging_path_check"] = paths["paging"]["kernel_check"]
+            k["max_abs_err"] = max(k["max_abs_err"],
+                                   paths["paging"]["kernel_check"][
+                                       "max_abs_err"])
             k["wide_banks"] = wider["mm_scan"]
             k["falcon9_path"] = {**paths["falcon9"]["mm_scan_at_path_shape"],
                                  "path_check": paths["falcon9"][
@@ -2911,12 +3682,16 @@ def main(argv) -> int:
         if k["name"] == "chunk_poly":  # once per fused group and block
             k["receiver_path_launches"] = (
                 paths["receiver"]["kernel_launches"]["chunk_poly"])
+            k["live_path_launches"] = (
+                paths["live"]["kernel_launches"]["chunk_poly"])
     assert all(k["launches"] for k in kernels), [
         (k["name"], k["launches"]) for k in kernels]
     print(json.dumps({"kernels": kernels}), flush=True)
     for name in ("fft", "pallas", "receiver", "pll", "ctcss", "meteor",
-                 "rds", "tf32", "dab", "falcon9", "kg_sstv", "m17", "ryfi"):
+                 "rds", "tf32", "dab", "falcon9", "kg_sstv", "m17", "ryfi",
+                 "pfb", "paging", "vor", "atv", "live", "scanner"):
         print(json.dumps(paths[name]), flush=True)
+    print(json.dumps({"timer_fallbacks": TIMER_FALLBACKS}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": dev["kind"], "count": dev["count"]}}),
         flush=True)

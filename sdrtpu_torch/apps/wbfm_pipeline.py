@@ -10,8 +10,9 @@ PyTorch counterpart of ``sdrtpu/apps/wbfm_pipeline.py``:
 
 Steady state (`scan_call`/`scan_repeat`), in sub-windows of blocks:
 
-- the fft channelizer takes any multiple of ``block_len`` as one window,
-  so each sub-window runs once through the whole chain (`_batched`);
+- the fft and pfb channelizers take any multiple of ``block_len`` as one
+  window, so each sub-window runs once through the whole chain
+  (`_batched`);
 - the other channelizer methods ("pallas", "xla-fused", "xla") take one
   block per call, so the front end runs once per block in a Python loop
   (`_front_window`) and the IF-rate back end once per sub-window.
@@ -201,12 +202,16 @@ class WbfmMultiVfoPipeline(StreamOp):
                        if a.ndim >= 2 and a.shape[:2] == (n_sub, sub) else a),
             stacked)
 
+    def _whole_windows(self) -> bool:
+        """Whether the channelizer takes a whole sub-window per call."""
+        return self.channelizer.method in ("fft", "pfb")
+
     def scan_call(self, state, xs):
         """K stacked wideband blocks ``(K, block_len)`` -> K blocks of output
         (audio ``(K, 2, C, n_af)``, spectra ``(K, frames, fft_size)``)."""
         K = xs.shape[0]
         sub = self._subk(K)
-        if self.channelizer.method == "fft":
+        if self._whole_windows():
             windows = xs.reshape(K // sub, sub * xs.shape[-1])
 
             def run(state, xw):
@@ -223,7 +228,7 @@ class WbfmMultiVfoPipeline(StreamOp):
         benchmark steady state)."""
         n = x.shape[-1]
         sub = self._subk(K)
-        if self.channelizer.method == "fft":
+        if self._whole_windows():
             x_sub = x[None, :].expand(sub, n).reshape(-1)
 
             def run(state, _):

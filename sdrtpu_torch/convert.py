@@ -17,9 +17,13 @@ phase) become 0-d tensors of the same dtype; the digital chains
 (`Costas`, `MeteorCostas`, `FastAgc`, `MuellerMuller`, `MeteorDemod`,
 `Psk`, `Gfsk`, `RdsDemod`, `FalconDemod`, `KgSstvDemod`) and the
 modulators (`RrcInterpolator`, `GfskMod`), `MultistageDecimator`'s tuple
-of stage tails and the sparse fold's tables (``hf`` of the live alias
-rows and the int32 ``fold_idx``) keep the reference's keys and dtypes,
-so their states convert this way too.  The reference's
+of stage tails, the sparse fold's tables (``hf`` of the live alias
+rows and the int32 ``fold_idx``), the PFB channelizer's state (its
+complex64 ``tail``, the int32 ``bins``, the bin-rate rotator ``rot``
+with its phase and tables, the ``resamp`` tails), `AtvLineSync`'s
+float32 tail and `VorReceiver`'s ``bpf`` tail and ``fm`` previous
+sample keep the reference's keys and dtypes, so their states convert
+this way too.  The reference's
 receiver keeps complex leaves as planar ``(re, im)`` pairs across its
 compiled step (a named tuple with those two fields); such a pair is
 joined into one complex leaf.  ``state_to_numpy`` goes back, to complex
@@ -59,6 +63,15 @@ def state_from_jax(state, device="cuda"):
     return tree_map(
         lambda leaf: torch.as_tensor(np.array(leaf, copy=True), device=dev),
         _join_planar(state))
+
+
+def to_numpy(x) -> np.ndarray:
+    """A torch tensor on any device, or anything numpy takes, as a numpy
+    array: what the host layers (decoders' bit layers, sinks, scanners)
+    do at their boundary."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
 
 
 def state_to_numpy(state):

@@ -13,11 +13,11 @@ The N VFOs are one more tensor axis.  Ported here:
   per-channel modulated taps of each decimation stage
   (`correlate_valid_bank`), one residual rotator at the output rate;
 - `Channelizer` with ``method`` "auto", "fft", "xla-fused", "xla" (the
-  plain `MultiVfoMixer` + `RationalResampler`) and "pallas" (stage 1 in
+  plain `MultiVfoMixer` + `RationalResampler`), "pallas" (stage 1 in
   the fused mix + decimate CUDA kernel K2, `FusedChannelizerStage`, then
-  the remaining predecimation stages and the fractional tail).
-
-Not ported yet (raises NotImplementedError; ROADMAP.md M11): "pfb".
+  the remaining predecimation stages and the fractional tail) and "pfb"
+  (the shared polyphase filter bank of `shard/pfb.py`, which produces
+  the IF rate itself).
 
 Offset-dependent tables (the fold table ``hf`` and the rotator tables)
 live in the state on the device, so a retune is a host rebuild and a
@@ -40,11 +40,6 @@ from ..kernels.resample import RationalResampler
 
 _TWO_PI = 2.0 * np.pi
 _FINE = 1024
-
-_NOT_PORTED = ("is not ported yet (ROADMAP.md M11: channelizer alternates); "
-               "sdrtpu_torch runs the fft (dense and sparse fold), "
-               "xla-fused, xla and pallas channelizers")
-
 
 class MultiVfoMixer(StreamOp):
     """C-channel frequency translation: y[c] = x * exp(i*omega_c*n).
@@ -510,10 +505,14 @@ class Channelizer(StreamOp):
     - "pallas": stage 1 in `FusedChannelizerStage` (kernel K2), then the
       remaining predecimation stages (per-channel tails in ``"rest"``);
     - "xla": `MultiVfoMixer` then the whole `RationalResampler`;
+    - "pfb": `PfbChannelizer`, a shared M-bin filter bank, its bin-rate
+      rotator and its own resampler to the IF rate (no rest stages, no
+      fractional tail);
     - "auto": "fft" when a chunk plan exists, else "xla-fused"; "xla"
       without integer predecimation.
 
-    Every method but "fft" takes exactly one block per call.
+    "fft" and "pfb" take any whole number of blocks per call, the others
+    exactly one.
     """
 
     def __init__(self, offsets_hz, in_samplerate: float,
@@ -531,14 +530,12 @@ class Channelizer(StreamOp):
             f"{self.resampler.block_multiple()}")
         self.n_channels = len(self.offsets)
         self.block_len = int(block_len)
-        if method == "pfb":
-            raise NotImplementedError("Channelizer method 'pfb' " + _NOT_PORTED)
         if method == "pallas-interpret":
             raise ValueError(
                 "'pallas-interpret' runs the TPU kernel in interpret mode; "
                 "pass method='pallas' with device='cpu' for the plain "
                 "PyTorch version")
-        if method not in ("auto", "fft", "xla-fused", "xla", "pallas"):
+        if method not in ("auto", "fft", "xla-fused", "xla", "pallas", "pfb"):
             raise ValueError(f"unknown channelizer method {method!r}")
         pre = self.resampler.predecim
         has_predecim = pre is not None and len(pre.stages) > 0
@@ -572,7 +569,15 @@ class Channelizer(StreamOp):
                 "low_pass_bw (the IF is left un-derotated)")
         self.rest_stages = []
         self.fused = self.mixer = None
-        if method == "fft":
+        # "pfb" produces the IF rate itself: no generic fractional tail
+        self._fused_complete = method == "pfb"
+        if method == "pfb":
+            from .pfb import PfbChannelizer
+
+            self.fused = PfbChannelizer(self.offsets, in_samplerate,
+                                        out_samplerate, block_len,
+                                        device=self.device)
+        elif method == "fft":
             self.fused = FftDecimatorChain(
                 self.offsets, in_samplerate, self._stages(), block_len,
                 skip_rotator=self.skip_rotator,
@@ -614,21 +619,25 @@ class Channelizer(StreamOp):
                         dtype=torch.complex64, device=self.device)
             for s in self.rest_stages)
         st["poly"] = (self.resampler.resamp.init_state()
-                      if self.resampler.resamp else ())
+                      if self.resampler.resamp and not self._fused_complete
+                      else ())
         return st
 
     def out_len(self, n: int) -> int:
         return self.resampler.out_len(n)
 
     def retune_state(self, state, offsets_hz) -> dict:
-        """Move all VFO offsets by a table swap (fft, xla-fused: the
-        chain's ``retune_state``; xla: the mixer's), keeping every
-        carried tail.  The pallas stage keeps its tables out of the
-        state and is rebuilt instead, as in the reference."""
+        """Move all VFO offsets by a table swap (pfb: the bins and the
+        rotator's tables; fft, xla-fused: the chain's ``retune_state``;
+        xla: the mixer's), keeping every carried tail.  The pallas stage
+        keeps its tables out of the state and is rebuilt instead, as in
+        the reference."""
         offsets = np.asarray(offsets_hz, np.float64)
         assert offsets.shape == self.offsets.shape
         st = dict(state)
-        if self.method in ("fft", "xla-fused"):
+        if self.method == "pfb":
+            st["fused"] = self.fused.retune_state(state["fused"], offsets)
+        elif self.method in ("fft", "xla-fused"):
             st["fused"] = self.fused.retune_state(
                 state["fused"], offsets, self.resampler.in_samplerate,
                 self._stages())
@@ -653,7 +662,7 @@ class Channelizer(StreamOp):
                 rst, y = s(rst, y)
                 new_rest.append(rst)
             st["rest"] = tuple(new_rest)
-            if self.resampler.resamp is not None:
+            if self.resampler.resamp is not None and not self._fused_complete:
                 st["poly"], y = self.resampler.resamp(state["poly"], y)
         if self.lpf:
             st["lpf"], y = self.lpf(state["lpf"], y)

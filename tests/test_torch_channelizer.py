@@ -179,10 +179,3 @@ def test_skip_rotator_guard_is_stricter_than_the_reference():
         tch.Channelizer(offs, 20e6, 48e3, 400000, skip_rotator=True,
                         device="cpu")
 
-
-@pytest.mark.parametrize("kw", [
-    {"method": "pfb"},
-])
-def test_unported_paths_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tch.Channelizer(np.array([1e5]), 2e6, 250e3, 20000, device="cpu", **kw)

@@ -6,10 +6,18 @@ the port's Costas and M&M run their plain PyTorch loops).
   with doubling passes: the same sums in another order.
 - `MeteorDemod` stage by stage, each stage fed the same input on both
   sides (the reference's previous stage's output): RRC 1e-6, AGC 2e-5
-  relative, Costas 1e-4, the OQPSK delay exact, M&M as
-  tests/test_torch_clock.py (valid counts within 2, isclose 1e-3 on
-  more than 99.9 %).  Two blocks; both packages start each from the JAX
-  package's state, carried into the port by ``convert``.
+  relative, Costas 1e-4, the OQPSK delay exact.  Two blocks; both
+  packages start each from the JAX package's state, carried into the
+  port by ``convert``.  The M&M stage runs in segments of
+  ``MM_SEGMENT`` samples, both packages starting each from the JAX
+  package's state: equal valid counts, and every symbol within 1e-3 of
+  the reference's or a bank-row flip (`_hold_mm_segment`), at most one
+  flip per block beyond 0.1 % of its symbols.  A row flip: where the
+  loop's phase lands within rounding of a boundary of the
+  interpolator's bank rows (``floor(phase * 128)``), the two packages
+  (the port sums the 8 tap products pairwise, XLA's CPU code with
+  reassociation allowed) may pick neighbouring rows; the segments keep
+  the carried difference from spreading past its segment.
 - `Psk` and `Gfsk` whole, two blocks from one state each: valid counts
   within 2 and ``isclose(atol=2e-2)`` on more than 99.5 % of the symbols
   (the thresholds of the reference's own Meteor oracle test,
@@ -29,17 +37,18 @@ from sdrtpu.kernels import taps as jtaps  # noqa: E402
 from sdrtpu_torch.convert import state_from_jax  # noqa: E402
 from sdrtpu_torch.kernels import psk as tp  # noqa: E402
 
-RNG = np.random.default_rng(71)
+SEED = 71  # each test seeds its own generator with it
+MM_SEGMENT = 250  # samples (~120 symbols)
 
 
-def _meteor_iq(nsym, cfo_hz=100.0, noise=0.05):
-    tx = np.exp(1j * (RNG.integers(0, 4, nsym) * np.pi / 2 + np.pi / 4))
+def _meteor_iq(rng, nsym, cfo_hz=100.0, noise=0.05):
+    tx = np.exp(1j * (rng.integers(0, 4, nsym) * np.pi / 2 + np.pi / 4))
     h = jtaps.root_raised_cosine_rate(251, 0.6, 1.0, 25.0)
     x = sig.upfirdn(h * 25.0, tx, 25, 12)[: nsym * 25 // 12]
     n = np.arange(len(x))
     x = x * np.exp(1j * (0.7 + 2 * np.pi * cfo_hz * n / 150000.0))
-    x = x + noise * (RNG.standard_normal(len(x))
-                     + 1j * RNG.standard_normal(len(x)))
+    x = x + noise * (rng.standard_normal(len(x))
+                     + 1j * rng.standard_normal(len(x)))
     return x.astype(np.complex64)
 
 
@@ -54,8 +63,37 @@ def _close_symbols(got, want, atol, share):
     assert np.isclose(got[:m], want[:m], atol=atol).mean() > share
 
 
+def _hold_mm_segment(jrecov, trecov, state, seg):
+    """One M&M segment from the JAX package's ``state`` on both sides.
+    Valid counts must be equal, and each port symbol within 1e-3 of the
+    reference's or a row flip: the reference's symbol is the bank's row
+    r applied to some window of the input (1e-4), and the port's is row
+    r - 1 or r + 1 applied to the same window (1e-4).  Returns the JAX
+    state after the segment and the counts (symbols, flips)."""
+    new, (dj, vj) = jrecov(state, jnp.asarray(seg))
+    _, (dt, vt) = trecov(state_from_jax(state, "cpu"), torch.as_tensor(seg))
+    want, got = _masked((dj, vj)), _masked((dt, vt))
+    assert len(got) == len(want), (len(got), len(want))
+    ext = np.concatenate([np.asarray(state["tail"]), seg]).astype(
+        np.complex128)
+    bank = np.asarray(jrecov.bank, np.float64)
+    windows = np.lib.stride_tricks.sliding_window_view(ext, bank.shape[1])
+    cand = windows @ bank.T  # (offset, row): every row at every offset
+    flips = 0
+    for w, g in zip(want, got):
+        if abs(g - w) <= 1e-3:
+            continue
+        o, r = np.unravel_index(np.argmin(np.abs(cand - w)), cand.shape)
+        assert abs(cand[o, r] - w) <= 1e-4, (w, cand[o, r])
+        near = [cand[o, q] for q in (r - 1, r + 1) if 0 <= q < len(bank)]
+        assert min(abs(g - c) for c in near) <= 1e-4, (g, w, r)
+        flips += 1
+    return new, len(want), flips
+
+
 def test_fast_agc_streams():
-    x = (np.exp(1j * RNG.uniform(0, 6.28, 2000))
+    rng = np.random.default_rng(SEED)
+    x = (np.exp(1j * rng.uniform(0, 6.28, 2000))
          * np.linspace(0.01, 3.0, 2000)).astype(np.complex64)
     ja, ta = jp.FastAgc(1.0, 1e6, 0.1), tp.FastAgc(1.0, 1e6, 0.1, device="cpu")
     sj = ja.init_state()
@@ -81,7 +119,7 @@ def test_fast_agc_max_gain_clamps():
 
 @pytest.mark.parametrize("oqpsk", [False, True])
 def test_meteor_demod_stage_by_stage(oqpsk):
-    x = _meteor_iq(1800)
+    x = _meteor_iq(np.random.default_rng(SEED), 1800)
     jd = jp.MeteorDemod(oqpsk=oqpsk)
     td = tp.MeteorDemod(oqpsk=oqpsk, device="cpu")
     np.testing.assert_array_equal(td.rrc.taps, jd.rrc.taps)
@@ -89,25 +127,27 @@ def test_meteor_demod_stage_by_stage(oqpsk):
     sj = jd.init_state()
     for blk in (x[:2000], x[2000:]):
         st = state_from_jax(sj, "cpu")
-        new_j = dict(sj)
-        new_j["rrc"], a = jd.rrc(sj["rrc"], jnp.asarray(blk))
+        _, a = jd.rrc(sj["rrc"], jnp.asarray(blk))
         _, a_t = td.rrc(st["rrc"], torch.as_tensor(blk))
         np.testing.assert_allclose(a_t.numpy(), np.asarray(a), atol=1e-6)
-        new_j["agc"], b = jd.agc(sj["agc"], a)
+        _, b = jd.agc(sj["agc"], a)
         _, b_t = td.agc(st["agc"], torch.as_tensor(np.array(a)))
         np.testing.assert_allclose(b_t.numpy(), np.asarray(b), rtol=2e-5,
                                    atol=1e-6)
-        new_j["costas"], c = jd.costas(sj["costas"], b)
+        _, c = jd.costas(sj["costas"], b)
         _, c_t = td.costas(st["costas"], torch.as_tensor(np.array(b)))
         np.testing.assert_allclose(c_t.numpy(), np.asarray(c), atol=1e-4)
         if oqpsk:
             im_prev = jnp.concatenate([jnp.asarray(sj["last_i"])[None],
                                        c.imag[:-1]])
-            new_j["last_i"] = c.imag[-1]
             c = c.real + 1j * im_prev
-        new_j["mm"], d = jd.recov(sj["mm"], c)
-        _, d_t = td.recov(st["mm"], torch.as_tensor(np.array(c)))
-        _close_symbols(_masked(d_t), _masked(d), 1e-3, 0.999)
+        mm, n_sym, n_flip = sj["mm"], 0, 0
+        c = np.array(c)
+        for s0 in range(0, len(c), MM_SEGMENT):
+            mm, n, f = _hold_mm_segment(jd.recov, td.recov, mm,
+                                        c[s0:s0 + MM_SEGMENT])
+            n_sym, n_flip = n_sym + n, n_flip + f
+        assert n_flip <= 1 + 0.001 * n_sym, (n_flip, n_sym)
         # the whole port chain from the same state gives the same stages
         st_t, out_t = td(st, torch.as_tensor(blk))
         sj, out_j = jd(sj, jnp.asarray(blk))
@@ -119,8 +159,9 @@ def test_meteor_demod_stage_by_stage(oqpsk):
 
 
 def test_psk_streams():
+    rng = np.random.default_rng(SEED)
     sps = 4
-    sym = np.exp(1j * (RNG.integers(0, 4, 700) * np.pi / 2 + np.pi / 4))
+    sym = np.exp(1j * (rng.integers(0, 4, 700) * np.pi / 2 + np.pi / 4))
     up = np.zeros(len(sym) * sps, np.complex128)
     up[::sps] = sym
     h = jtaps.root_raised_cosine_rate(45, 0.35, 1.0, float(sps))
@@ -144,7 +185,8 @@ def test_psk_streams():
 
 def test_gfsk_streams():
     fs, baud, dev = 48000.0, 4800.0, 2400.0
-    bits = RNG.integers(0, 2, 400) * 2.0 - 1.0
+    rng = np.random.default_rng(SEED)
+    bits = rng.integers(0, 2, 400) * 2.0 - 1.0
     sps = int(fs / baud)
     freq = np.repeat(bits, sps) * dev
     x = np.exp(1j * np.cumsum(2 * np.pi * freq / fs)).astype(np.complex64)
