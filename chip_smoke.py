@@ -98,19 +98,36 @@ Phases, each fatal:
    card vs CPU on the first two blocks; the real-time factor and the
    send-to-audio latency, with no profiler; the same bytes unpaced; 4 s
    more under the profiler for the busy share; and a fake rtl_tcp
-   server at 2.4 Msps u8 into one WFM VFO for 5 s.
+   server at 2.4 Msps u8 into one WFM VFO for 5 s;
+24. remote path: ``python -m sdrtpu_torch.apps.server`` (a process of its
+   own) serves the receiver capture as an int16 WAV over the SDR++ server
+   protocol; `SdrppClient` (i16) feeds the receiver path's VFO set on the
+   card for 4.8 s: the SmGui menu round trip and the rate before START;
+   in mid stream, each from its own thread, a rigctl ``F`` moving the
+   usb VFO onto another station (``f`` reads it back), the web view's
+   ``/spectrum.json`` (every station's peak), ``/status.json`` and a
+   ``/tune`` moving w2, and `RadioInterface` switching the am VFO to
+   nfm and back; every sample the looped capture's wire decode, the
+   tones after each event, card vs CPU on the first two blocks; then a
+   second session, zstd where there is one, under the profiler;
+25. netclients path: one process of fakes serves a SpyServer (int16,
+   2.5 Msps, WFM), a Hermes (UDP, 384 kHz, AM) and a Spectran HTTP stream
+   (float32, 2 Msps, NFM) for 2 s each; each port client feeds a
+   one-VFO receiver on the card: the IQ bit-equal to the wire bytes'
+   decode, the tone, the launches.
 
 Around each path's run every kernel's launch count is set to 0 and read,
 and must be exact for all seven kernels (fft: chunk_poly 32; pallas:
 mix_decimate 256; receiver, pll, meteor, rds, dab, falcon9, kg_sstv,
-m17, ryfi, paging and live: see their phases; pfb, vor, atv, scanner
-and rtl_tcp: none; every other count 0); then the same port runs on the
-CPU, and the card's output is held against it.
+m17, ryfi, paging, live, remote and netclients: see their phases; pfb,
+vor, atv, scanner and rtl_tcp: none; every other count 0); then the same
+port runs on the CPU, and the card's output is held against it.
 
 Standard output: the card line, the ``kernels`` JSON line, the fft
 flagship line, the pallas path line, the receiver, pll, ctcss, meteor,
-rds, tf32, dab, falcon9, kg_sstv, m17, ryfi, pfb, paging, vor, atv, live
-and scanner lines, and last ``{"ok": true, "device": {...}}``.
+rds, tf32, dab, falcon9, kg_sstv, m17, ryfi, pfb, paging, vor, atv, live,
+scanner, remote and netclients lines, the timer fallbacks line, and last
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -122,6 +139,7 @@ import os
 import re
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -1046,6 +1064,48 @@ def dominant_hz(a: np.ndarray, fs: float = 48000.0) -> float:
     return float(np.argmax(spec) * fs / a.shape[-1])
 
 
+def rx_tone_checks(where: str, last: dict, retuned: bool) -> dict:
+    """Each VFO's recovered tones on one block of the receiver path's
+    audio (``last``: name -> (2, n)); the retuned VFOs (w2, usb) hear
+    their spare stations when ``retuned``.  Raises on a miss."""
+    tones = {}
+    for name, (_, mode) in RX_VFOS.items():
+        f1, f2 = rx_tones(name, spare=retuned and name in RX_SPARE)
+        a = last[name]
+        if mode == "wfm":
+            tones[name] = [dominant_hz(a[0]), dominant_hz(a[1])]
+            ok = abs(tones[name][0] - f1) < 6.0 and abs(tones[name][1] - f2) < 6.0
+        else:
+            expect = {"nfm": f1, "am": f1, "usb": f1 + 1400.0,
+                      "cw": 820.0}[mode]
+            tones[name] = [dominant_hz(a[0])]
+            ok = abs(tones[name][0] - expect) < 6.0
+        if not ok:
+            raise AssertionError(f"{where}: VFO {name} ({mode}) recovered "
+                                 f"{tones[name]}, sent {(f1, f2)}")
+    return tones
+
+
+def rx_audio_vs_cpu(where: str, card: dict, cpu: dict) -> dict:
+    """Each VFO's card audio (``card``: name -> the first blocks) against
+    the port on the CPU over the same blocks, past RX_SKIP samples:
+    AUDIO_ATOL, RX_AGC_RTOL of the peak for the AGC chains.  Raises on a
+    miss."""
+    errs = {}
+    for name, (_, mode) in RX_VFOS.items():
+        got = np.concatenate(card[name], axis=-1)
+        ref = np.concatenate(cpu[name], axis=-1)
+        peak = float(np.abs(ref).max())
+        err = float(np.abs(got - ref)[..., RX_SKIP:].max())
+        tol = (AUDIO_ATOL if mode in ("wfm", "nfm")
+               else RX_AGC_RTOL * max(peak, 1.0))
+        errs[name] = {"max_abs_err": err, "tol": tol, "peak": peak}
+        if not err <= tol:
+            raise AssertionError(f"{where}: card audio vs CPU, VFO {name} "
+                                 f"({mode}): {errs[name]}")
+    return errs
+
+
 def phase_receiver(card: str, rx_plans: dict,
                    profile_path: str | None = None) -> dict:
     """The generic receive path on the card, through `IQFrontend` and
@@ -1143,18 +1203,8 @@ def phase_receiver(card: str, rx_plans: dict,
         cpu_rx.push(x)
     cpu_rx.flush()
     cpu_s = time.perf_counter() - t0
-    errs = {}
-    for name, (_, mode) in RX_VFOS.items():
-        got = np.concatenate(audio[name][:RX_CPU_BLOCKS], axis=-1)
-        ref = np.concatenate(cpu_audio[name], axis=-1)
-        peak = float(np.abs(ref).max())
-        err = float(np.abs(got - ref)[..., RX_SKIP:].max())
-        tol = (AUDIO_ATOL if mode in ("wfm", "nfm")
-               else RX_AGC_RTOL * max(peak, 1.0))
-        errs[name] = {"max_abs_err": err, "tol": tol, "peak": peak}
-        if not err <= tol:
-            raise AssertionError(
-                f"receiver: card audio vs CPU, VFO {name} ({mode}): {errs[name]}")
+    errs = rx_audio_vs_cpu("receiver", {n: v[:RX_CPU_BLOCKS]
+                                        for n, v in audio.items()}, cpu_audio)
     s_gpu = np.concatenate(spec[:RX_CPU_BLOCKS])
     s_cpu = np.concatenate(cpu_spec)
     live = s_cpu > s_cpu.max(axis=-1, keepdims=True) - 80.0
@@ -3376,38 +3426,13 @@ def phase_live(card: str, receiver_msps: float) -> dict:
         return rec, first, last, received
 
     paced_rec, first, last, received = session(LIVE_SECONDS, paced=True)
-    tones = {}
-    for name, (_, mode) in RX_VFOS.items():
-        f1, f2 = rx_tones(name)
-        a = last[name]
-        if mode == "wfm":
-            tones[name] = [dominant_hz(a[0]), dominant_hz(a[1])]
-            ok = abs(tones[name][0] - f1) < 6.0 and abs(tones[name][1] - f2) < 6.0
-        else:
-            expect = {"nfm": f1, "am": f1, "usb": f1 + 1400.0,
-                      "cw": 820.0}[mode]
-            tones[name] = [dominant_hz(a[0])]
-            ok = abs(tones[name][0] - expect) < 6.0
-        if not ok:
-            raise AssertionError(f"live: VFO {name} ({mode}) recovered "
-                                 f"{tones[name]}")
+    tones = rx_tone_checks("live", last, retuned=False)
     # the port on the CPU over the first received blocks
     cpu_rx, cpu_audio, _ = build_receiver("cpu", spectrum=False)
     for b in received:
         cpu_rx.push(b)
     cpu_rx.flush()
-    errs = {}
-    for name, (_, mode) in RX_VFOS.items():
-        got = np.concatenate(first[name], axis=-1)
-        ref = np.concatenate(cpu_audio[name], axis=-1)
-        peak = float(np.abs(ref).max())
-        err = float(np.abs(got - ref)[..., RX_SKIP:].max())
-        tol = (AUDIO_ATOL if mode in ("wfm", "nfm")
-               else RX_AGC_RTOL * max(peak, 1.0))
-        errs[name] = {"max_abs_err": err, "tol": tol}
-        if not err <= tol:
-            raise AssertionError(f"live: card vs CPU, VFO {name}: "
-                                 f"{errs[name]}")
+    errs = rx_audio_vs_cpu("live", first, cpu_audio)
     del cpu_rx, cpu_audio, first, last, received
     mark("card vs CPU")
 
@@ -3564,6 +3589,685 @@ def phase_scanner(card: str) -> dict:
             "card": card}
 
 
+REMOTE_BLOCKS = 24          # receiver blocks of 2 000 000 in the first
+                            # session: 4.8 s of the capture
+REMOTE_PROFILED_BLOCKS = 10  # the second session (zstd where there is
+                             # one), under the CUDA-only profiler
+REMOTE_CENTER = 100_000_000.0  # the frequency rigctl sees at offset 0
+# control events, each before the receiver block of that index: the
+# rigctl and web retunes run on their own threads over the next pushes;
+# the two demodulator switches are joined before the block is pushed,
+# so each block's launches are known
+REMOTE_RETUNES_AT, REMOTE_NFM_AT, REMOTE_AM_AT = 6, 12, 16
+NET_SECONDS = 2.0           # of each fake's station
+NET_CHUNK_S = 0.02          # the fakes' 20 ms messages
+SPY_FS, SPY_OFFSET = 2_500_000.0, 300_000.0       # int16 IQ, a WFM station
+HERMES_FS, HERMES_OFFSET = 384_000.0, 50_000.0    # the top rate code, AM
+HERMES_TONE = 700.0
+# tests/test_flex_spectran_rigctl.py's stream: 99-101 MHz, 2 Msps float32
+SPECTRAN_FS, SPECTRAN_OFFSET, SPECTRAN_TONE = 2_000_000.0, 200_000.0, 1000.0
+
+
+class Job(threading.Thread):
+    """A control client on a thread of its own; `finish` waits for it and
+    re-raises what it raised."""
+
+    def __init__(self, fn):
+        super().__init__(daemon=True)
+        self.fn, self.error, self.result = fn, None, None
+
+    def run(self):
+        try:
+            self.result = self.fn()
+        except BaseException as e:  # noqa: BLE001 - re-raised by join
+            self.error = e
+
+    def finish(self, timeout=60.0):
+        self.join(timeout)
+        if self.is_alive():
+            raise AssertionError(f"{self.fn.__name__} did not finish")
+        if self.error is not None:
+            raise self.error
+        return self.result
+
+
+def start_server(path: str, log_lines: list) -> tuple:
+    """``python -m sdrtpu_torch.apps.server`` on ``path`` in a process of
+    its own, on a loopback port it picks; returns (process, port).  Its
+    standard error is kept in ``log_lines`` by a reader thread."""
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "sdrtpu_torch.apps.server", "--input", path,
+         "--addr", "127.0.0.1", "--port", "0", "--max-seconds", "900"],
+        stderr=subprocess.PIPE, text=True)
+    port = None
+    t0 = time.monotonic()
+    while port is None and time.monotonic() - t0 < 120.0:
+        line = proc.stderr.readline()
+        if not line:
+            break
+        log_lines.append(line.rstrip())
+        m = re.search(r"listening on 127\.0\.0\.1:(\d+)", line)
+        port = int(m.group(1)) if m else None
+    if port is None:
+        proc.kill()
+        raise AssertionError(f"remote: the server did not start: {log_lines}")
+    threading.Thread(target=lambda: log_lines.extend(
+        ln.rstrip() for ln in proc.stderr), daemon=True).start()
+    return proc, port
+
+
+def wire_checks(where: str, packets: list, cap: np.ndarray,
+                block: int) -> dict:
+    """The server's blocks are the capture looped: find where the first
+    one starts, then hold every packet to the wire decode of that block
+    of the loop (the server compresses whole blocks; the last packet may
+    be cut) and to the capture within one int16 step of its scale (the
+    block's peak component clips from 32768 to 32767 steps) and two
+    float32 ulps of it (the decode's product)."""
+    from sdrtpu_torch.io import compression
+
+    n = len(cap)
+    step = np.gcd(block, n)
+    head = packets[0][:64]
+    starts = np.arange(0, n, step)
+    err = np.abs(cap[(starts[:, None] + np.arange(64)) % n] - head).max(axis=1)
+    pos0 = int(starts[np.argmin(err)])
+    worst = 0.0
+    for k, p in enumerate(packets):
+        seg = cap[(pos0 + k * block + np.arange(block)) % n]
+        want = compression.decompress(compression.compress(
+            seg, compression.PCM_TYPE_I16))[:len(p)]
+        if not np.array_equal(p, want):
+            raise AssertionError(f"{where}: packet {k} is not the looped "
+                                 f"capture's block at {pos0 + k * block}")
+        scale = float(np.abs(np.stack([seg.real, seg.imag])).max())
+        dev = float(np.abs(np.stack([(p - seg[:len(p)]).real,
+                                     (p - seg[:len(p)]).imag])).max())
+        bound = scale / 32768.0 + 2 * float(np.spacing(np.float32(scale)))
+        if dev > bound:
+            raise AssertionError(f"{where}: packet {k} is {dev} off the "
+                                 f"capture (one step and two ulps {bound})")
+        worst = max(worst, dev / scale * 32768.0)
+    return {"start_sample": pos0, "packets": len(packets),
+            "max_dev_int16_steps": worst}
+
+
+def phase_remote(card: str) -> dict:
+    """The SDR++ server/client split with the receiver on the card: the
+    port's `apps/server.py` `main` serves the receiver capture (an int16
+    IQ WAV) from a process of its own; the port's `SdrppClient` (i16)
+    feeds the receiver path's VFO set (`build_receiver`) on the card.
+    Before START: the SmGui menu round trip and the sample rate.  In
+    mid stream, each from a thread of its own: a `RigctlServer` ``F``
+    that moves the per-VFO usb channel onto its spare station (``f``
+    reads it back), `SpectrumWebServer` ``/spectrum.json``,
+    ``/status.json`` and a ``/tune`` that moves the grouped w2 channel
+    onto its spare, and `RadioInterface` (through `ModuleComManager`,
+    with `receiver_rebuild`) switching the am VFO to nfm and back.  Then
+    a second session, zstd-compressed where this machine has zstd, under
+    the profiler for the card's busy share."""
+    import urllib.request
+
+    from sdrtpu_torch.apps import module_com as mc_mod
+    from sdrtpu_torch.apps.rigctl_client import RigctlProtocolClient
+    from sdrtpu_torch.apps.rigctl_server import RigctlServer
+    from sdrtpu_torch.apps.waterfall import WaterfallView
+    from sdrtpu_torch.apps.webview import SpectrumWebServer
+    from sdrtpu_torch.io import compression, smgui, wav
+    from sdrtpu_torch.io import server_protocol as sp
+    from torch.profiler import ProfilerActivity, profile
+
+    block = 65536  # the server's default
+    out_dir = os.path.join("build", "chip_smoke")
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "remote_capture.wav")
+    wav.write_iq_wav(path, int(RX_FS), receiver_capture(11, RX_BLOCK),
+                     "int16")
+    _, cap = wav.read_iq_wav(path)  # what the server serves
+    server_log: list[str] = []
+    proc, port = start_server(path, server_log)
+    rig = web = None
+    try:
+        cli = sp.SdrppClient("127.0.0.1", port)
+        # before START: the remote menu and the rate
+        widgets = cli.get_ui()
+        combo = next(w for w in widgets if w.step == smgui.STEP_COMBO)
+        assert combo.label == "##sdrtpu_server_src_sel", combo.label
+        assert smgui.split_combo_items(combo.operands[2].s) == [
+            "File", "Network"] and combo.operands[1].i == 0
+        t0 = time.perf_counter()
+        widgets = cli.ui_action("##sdrtpu_server_src_sel",
+                                smgui.Elem.integer(1))
+        ui_ms = (time.perf_counter() - t0) * 1e3
+        labels = [w.label for w in widgets]
+        redraw = [w for w in cli.get_ui() if w.step == smgui.STEP_COMBO]
+        if not ("##sdrtpu_net_port" in labels
+                and redraw[0].operands[1].i == 1):
+            raise AssertionError(f"remote: the source combo's action is not "
+                                 f"in the next draw: {labels}")
+        cli.ui_action("##sdrtpu_server_src_sel", smgui.Elem.integer(0))
+        rate = cli.get_samplerate()
+        if rate != RX_FS:
+            raise AssertionError(f"remote: GET_SAMPLERATE {rate}")
+        cli.set_sample_type(compression.PCM_TYPE_I16)
+
+        rx, audio, _ = build_receiver("cuda")
+        fe = rx.frontend
+        view = WaterfallView(fft_size=65536, height=8, view_width=1024)
+        rx.spectrum_sink = view.push
+        rx.warmup()
+        rig = RigctlServer(
+            "127.0.0.1", 0,
+            get_freq=lambda: REMOTE_CENTER + fe.vfos["usb"].cfg.offset_hz,
+            set_freq=lambda f: rx.retune("usb", f - REMOTE_CENTER))
+        web = SpectrumWebServer(view, receiver=rx)
+        mc = mc_mod.ModuleComManager()
+        mc.register_interface("radio", "Radio", mc_mod.RadioInterface(
+            rx, "am", mc_mod.receiver_rebuild(rx, "am")))
+        rt: dict = {}
+
+        def get_json(what):
+            t0 = time.perf_counter()
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{web.port}{what}", timeout=30) as r:
+                body = json.loads(r.read())
+            return body, (time.perf_counter() - t0) * 1e3
+
+        def rigctl_retune():
+            c = RigctlProtocolClient("127.0.0.1", rig.port)
+            want = REMOTE_CENTER + RX_SPARE["usb"][0]
+            t0 = time.perf_counter()
+            code = c.set_freq(want)
+            rt["rigctl_F_ms"] = (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            back = c.get_freq()
+            rt["rigctl_f_ms"] = (time.perf_counter() - t0) * 1e3
+            c.close()
+            if code != 0 or back != want:
+                raise AssertionError(f"rigctl: RPRT {code}, f read {back}, "
+                                     f"want {want}")
+
+        def web_session():
+            spec, rt["spectrum_json_ms"] = get_json("/spectrum.json")
+            db = np.asarray(spec["db"])
+            floor = float(np.median(db))
+            peaks = {}
+            for name, (off, _) in list(RX_VFOS.items()) + [
+                    (n + "_spare", v) for n, v in RX_SPARE.items()]:
+                px = int((off + RX_FS / 2) / RX_FS * len(db))
+                peaks[name] = float(db[max(px - 2, 0):px + 3].max()) - floor
+            if min(peaks.values()) < 20.0:
+                raise AssertionError(f"webview: station peaks over the floor "
+                                     f"{peaks} dB")
+            rt["spectrum_peaks_db_over_floor"] = peaks
+            body, rt["tune_ms"] = get_json(
+                f"/tune?vfo=w2&offset={RX_SPARE['w2'][0]:.0f}")
+            st, rt["status_json_ms"] = get_json("/status.json")
+            if not (body == {"ok": True} and st["samplerate"] == RX_FS
+                    and st["vfos"]["w2"]["offset"] == RX_SPARE["w2"][0]
+                    and {n: v["mode"] for n, v in st["vfos"].items()}
+                    == {n: m for n, (_, m) in RX_VFOS.items()}):
+                raise AssertionError(f"webview: /tune {body}, status {st}")
+
+        def switch(mode):
+            def radio_set_mode():
+                t0 = time.perf_counter()
+                mc.call_interface("Radio", mc_mod.RADIO_IFACE_CMD_SET_MODE,
+                                  mc_mod.RADIO_IFACE_MODES.index(mode))
+                rt.setdefault("set_mode_ms", []).append(
+                    (time.perf_counter() - t0) * 1e3)
+                if fe.vfos["am"].radio.mode != mode:
+                    raise AssertionError(f"SET_MODE {mode}: the am VFO runs "
+                                         f"{fe.vfos['am'].radio.mode}")
+            return radio_set_mode
+
+        jobs = {}
+
+        def on_block(b):
+            if b == REMOTE_RETUNES_AT:
+                jobs["rig"] = Job(rigctl_retune)
+                jobs["web"] = Job(web_session)
+                jobs["rig"].start()
+                jobs["web"].start()
+            if b == REMOTE_NFM_AT - 3:
+                jobs.pop("rig").finish()
+                jobs.pop("web").finish()
+            if b in (REMOTE_NFM_AT, REMOTE_AM_AT):
+                job = Job(switch("nfm" if b == REMOTE_NFM_AT else "am"))
+                job.start()
+                job.finish()
+
+        def session(n_blocks, on_block=None):
+            """Read baseband and push it a block at a time; returns the
+            packets as received and the timings."""
+            packets, pend, pend_n, push_ms, b = [], [], 0, [], 0
+            need = n_blocks * RX_BLOCK
+            got, t_first = 0, None
+            while got < need:
+                iq = cli.recv_baseband(timeout=30.0)
+                if iq is None:
+                    raise AssertionError("remote: the server stopped sending")
+                if t_first is None:
+                    t_first = time.monotonic()
+                iq = iq[:need - got]
+                packets.append(iq)
+                got += len(iq)
+                pend.append(iq)
+                pend_n += len(iq)
+                if pend_n < RX_BLOCK:
+                    continue
+                x = np.concatenate(pend)
+                while len(x) >= RX_BLOCK:
+                    if on_block is not None:
+                        on_block(b)
+                    t0 = time.perf_counter()
+                    rx.push(x[:RX_BLOCK])
+                    push_ms.append((time.perf_counter() - t0) * 1e3)
+                    x, b = x[RX_BLOCK:], b + 1
+                pend, pend_n = [x], len(x)
+            t_end = time.monotonic()
+            cli.stop()
+            rx.flush()
+            torch.cuda.synchronize()
+            return packets, {"samples": got, "seconds": t_end - t_first,
+                             "push_ms": push_ms}
+
+        counters = kernel_counters()
+        for fn in counters.values():
+            fn.launches = 0
+        cli.start()
+        packets, timing = session(REMOTE_BLOCKS, on_block)
+        launches = {name: fn.launches for name, fn in counters.items()}
+        n_nfm = REMOTE_AM_AT - REMOTE_NFM_AT
+        want = expected_launches(
+            chunk_poly=2 * (REMOTE_BLOCKS + 2),
+            agc_scan=3 * (REMOTE_BLOCKS - n_nfm) + 2 * n_nfm + 2 + 3)
+        if launches != want:
+            raise AssertionError(f"remote: launched {launches}, want {want}")
+        wire = wire_checks("remote", packets, cap, block)
+        if wire["start_sample"] != 0:
+            raise AssertionError(f"remote: the stream began at sample "
+                                 f"{wire['start_sample']}")
+        head = np.concatenate(packets[:RX_CPU_BLOCKS * RX_BLOCK // block + 1])
+        rx_blocks = [head[k * RX_BLOCK:(k + 1) * RX_BLOCK]
+                     for k in range(RX_CPU_BLOCKS)]
+        del packets, head
+        for name, chunks_ in audio.items():
+            assert len(chunks_) == REMOTE_BLOCKS, (name, len(chunks_))
+        # the tones: before the retunes, after every event, and the am VFO
+        # while it ran nfm (its AM station's tone gone) and after
+        before = rx_tone_checks("remote, before the retunes",
+                                {n: v[REMOTE_RETUNES_AT - 1]
+                                 for n, v in audio.items()}, retuned=False)
+        after = rx_tone_checks("remote, after every event",
+                               {n: v[-1] for n, v in audio.items()},
+                               retuned=True)
+        f_am = rx_tones("am")[0]
+        am_db = {"am_before": tone_db(audio["am"][REMOTE_NFM_AT - 1][0], f_am),
+                 "nfm": max(tone_db(a[0], f_am) for a in
+                            audio["am"][REMOTE_NFM_AT:REMOTE_AM_AT]),
+                 "am_after": tone_db(audio["am"][-1][0], f_am)}
+        if not (am_db["nfm"] < min(am_db["am_before"], am_db["am_after"])
+                - 30.0):
+            raise AssertionError(f"remote: the am VFO's {f_am} Hz tone "
+                                 f"around the nfm switch: {am_db} dB")
+        # the same port on the CPU over the first blocks
+        cpu_rx, cpu_audio, _ = build_receiver("cpu", spectrum=False)
+        for x in rx_blocks:
+            cpu_rx.push(x)
+        cpu_rx.flush()
+        errs = rx_audio_vs_cpu("remote", {n: v[:RX_CPU_BLOCKS]
+                                          for n, v in audio.items()},
+                               cpu_audio)
+        del cpu_rx, cpu_audio, rx_blocks
+        cli.close()
+
+        # the second session: zstd where there is one, profiled.  The
+        # server takes a client once the last one's connection has ended
+        for _ in range(100):
+            cli = sp.SdrppClient("127.0.0.1", port)
+            try:
+                cli._sock.settimeout(5.0)
+                if cli.get_samplerate() == RX_FS:
+                    break
+            except (ConnectionError, OSError):
+                cli.close()
+                time.sleep(0.05)
+        cli._sock.settimeout(None)
+        cli.set_sample_type(compression.PCM_TYPE_I16)
+        zstd_calls = [0]
+        unpatched = sp.compression.zstd_decompress
+        if compression.HAVE_ZSTD:
+            cli.set_compression(True)
+            zstd = "on"
+
+            def counted(data):
+                zstd_calls[0] += 1
+                return unpatched(data)
+
+            sp.compression.zstd_decompress = counted
+        else:
+            zstd = ("skipped: no zstd on this machine (neither the "
+                    "zstandard module nor libzstd)")
+            log(f"remote: second session without compression, zstd {zstd}")
+        for fn in counters.values():
+            fn.launches = 0
+        prof = profile(activities=[ProfilerActivity.CUDA])
+        prof.start()
+        try:
+            cli.start()
+            packets2, timing2 = session(REMOTE_PROFILED_BLOCKS)
+        finally:
+            prof.stop()
+            sp.compression.zstd_decompress = unpatched
+        busy_us = sum(e.time_range.elapsed_us() for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA)
+        launches2 = {name: fn.launches for name, fn in counters.items()}
+        want2 = expected_launches(chunk_poly=2 * REMOTE_PROFILED_BLOCKS,
+                                  agc_scan=3 * REMOTE_PROFILED_BLOCKS)
+        if launches2 != want2:
+            raise AssertionError(f"remote, second session: launched "
+                                 f"{launches2}, want {want2}")
+        wire2 = wire_checks("remote, second session", packets2, cap, block)
+        if compression.HAVE_ZSTD and zstd_calls[0] != len(packets2):
+            raise AssertionError(f"remote: {zstd_calls[0]} of "
+                                 f"{len(packets2)} packets were zstd")
+        cli.close()
+    finally:
+        for srv in (rig, web):
+            if srv is not None:
+                srv.close()
+        proc.kill()
+        proc.wait(30)
+    s1 = timing["samples"]
+    return {"remote": f"sdrtpu_torch.apps.server (file source, a process of "
+                      f"its own, {block}-sample i16 blocks) -> SdrppClient -> "
+                      f"receiver ({RX_FS / 1e6:.0f} Msps, 8 VFOs, {RX_BLOCK}-"
+                      f"sample blocks); rigctl, webview and RadioInterface "
+                      f"mid stream",
+            "blocks": REMOTE_BLOCKS, "samples_received": s1, "wire": wire,
+            "kernel_launches": launches,
+            "received_msps": s1 / timing["seconds"] / 1e6,
+            "real_time_factor": s1 / RX_FS / timing["seconds"],
+            "push_ms_per_block_median": float(np.median(timing["push_ms"])),
+            "push_ms_per_block_max": float(np.max(timing["push_ms"])),
+            "round_trip_ms": {"ui_action": ui_ms, **rt},
+            "recovered_before_retunes": before, "recovered": after,
+            "am_tone_db": am_db,
+            "audio_vs_cpu": errs, "audio_vs_cpu_blocks": RX_CPU_BLOCKS,
+            "second_session": {
+                "zstd": zstd, "blocks": REMOTE_PROFILED_BLOCKS,
+                "wire": wire2, "kernel_launches": launches2,
+                "real_time_factor": (timing2["samples"] / RX_FS
+                                     / timing2["seconds"]),
+                "device_busy_share": busy_us / 1e6 / timing2["seconds"],
+                "device_busy_ms_per_block": (busy_us / 1e3
+                                             / REMOTE_PROFILED_BLOCKS)},
+            "server_log": server_log[-5:], "card": card}
+
+
+# -- the netclients path: the fakes' wire, made the same in both processes --
+
+def net_station(kind: str) -> np.ndarray:
+    """NET_SECONDS of one station at its client's rate and offset."""
+    from sdrtpu_torch.apps import live_radio
+
+    if kind == "spy":  # stereo WFM, 440 Hz left, 1200 Hz right
+        return live_radio.make_station(SPY_FS, SPY_OFFSET,
+                                       int(SPY_FS * NET_SECONDS))
+    fs, off = ((HERMES_FS, HERMES_OFFSET) if kind == "hermes"
+               else (SPECTRAN_FS, SPECTRAN_OFFSET))
+    n = int(fs * NET_SECONDS)
+    if kind == "hermes":
+        n = -(-n // 126) * 126  # whole USB packets
+    t = np.arange(n) / fs
+    rng = np.random.default_rng({"hermes": 21, "spectran": 22}[kind])
+    if kind == "hermes":
+        base = 0.4 * (1.0 + 0.5 * np.sin(2 * np.pi * HERMES_TONE * t))
+    else:
+        base = 0.5 * np.exp(1j * np.cumsum(
+            2 * np.pi * 2500.0 * np.sin(2 * np.pi * SPECTRAN_TONE * t) / fs))
+    x = base * np.exp(2j * np.pi * off * t) + 1e-3 * (
+        rng.standard_normal(n) + 1j * rng.standard_normal(n))
+    return x.astype(np.complex64)
+
+
+def net_wire(kind: str) -> list:
+    """The fake's messages: SpyServer int16 IQ bodies, Hermes USB packets,
+    Spectran float32 chunk payloads (20 ms each; Hermes 126 samples)."""
+    from sdrtpu_torch.io import hermes
+
+    x = net_station(kind)
+    if kind == "hermes":
+        return [hermes.build_usb_packet(x[k:k + 126], seq=k // 126)
+                for k in range(0, len(x), 126)]
+    fs = SPY_FS if kind == "spy" else SPECTRAN_FS
+    per = int(fs * NET_CHUNK_S)
+    inter = np.empty(2 * len(x), np.float32)
+    inter[0::2], inter[1::2] = x.real, x.imag
+    if kind == "spy":
+        inter = np.clip(np.rint(inter * 32767.0), -32768, 32767).astype(
+            np.int16)
+    return [inter[2 * k:2 * (k + per)].tobytes()
+            for k in range(0, len(x), per)]
+
+
+def _serve_spyserver(sock, bodies):
+    import struct
+
+    from sdrtpu_torch.io import spyserver as ss
+
+    conn, _ = sock.accept()
+    conn.settimeout(120.0)
+    f = conn.makefile("rb")
+    ctype, size = struct.unpack("<II", f.read(8))
+    f.read(size)  # HELLO
+    hdr = struct.Struct("<IIIII")
+    conn.sendall(hdr.pack(ss.PROTOCOL_VERSION, ss.MSG_DEVICE_INFO, 0, 0, 48)
+                 + struct.pack("<12I", 2, 1, int(SPY_FS), int(SPY_FS), 0, 1,
+                               30, 24_000_000, 1_766_000_000, 12, 0, 0))
+    while True:  # settings until the stream is enabled
+        ctype, size = struct.unpack("<II", f.read(8))
+        setting, value = struct.unpack("<II", f.read(size))
+        if setting == ss.SETTING_STREAMING_ENABLED and value:
+            break
+    t0 = time.monotonic()
+    for k, body in enumerate(bodies):
+        wait = t0 + k * NET_CHUNK_S - time.monotonic()
+        if wait > 0:
+            time.sleep(wait)
+        conn.sendall(hdr.pack(ss.PROTOCOL_VERSION, ss.MSG_INT16_IQ,
+                              ss.STREAM_TYPE_IQ, k, len(body)) + body)
+    with contextlib.suppress(OSError, struct.error):
+        while True:  # until the client stops the stream
+            ctype, size = struct.unpack("<II", f.read(8))
+            if struct.unpack("<II", f.read(size)) == (
+                    ss.SETTING_STREAMING_ENABLED, 0):
+                break
+    conn.close()
+
+
+def _serve_hermes(sock, packets):
+    _, addr = sock.recvfrom(2048)  # the client's start
+    t0 = time.monotonic()
+    k = 0
+    while k < len(packets):
+        due = int((time.monotonic() - t0) * HERMES_FS / 126) + 1
+        while k < min(due, len(packets)):
+            sock.sendto(packets[k], addr)
+            k += 1
+        time.sleep(0.005)
+    sock.settimeout(5.0)
+    with contextlib.suppress(OSError):
+        while sock.recvfrom(2048)[0][3] != 0:  # until the client's stop
+            pass
+
+
+def _serve_spectran(sock, payloads):
+    conn, _ = sock.accept()
+    conn.settimeout(120.0)
+    req = b""
+    while b"\r\n\r\n" not in req:
+        req += conn.recv(4096)
+    conn.sendall(b"HTTP/1.1 200 OK\r\nTransfer-Encoding: chunked\r\n\r\n")
+    meta = json.dumps({"startFrequency": 99_000_000,
+                       "endFrequency": 101_000_000,
+                       "sampleFrequency": int(SPECTRAN_FS)}).encode() + b"\n"
+    t0 = time.monotonic()
+    for k, p in enumerate(payloads):
+        wait = t0 + k * NET_CHUNK_S - time.monotonic()
+        if wait > 0:
+            time.sleep(wait)
+        body = meta + bytes([0x1E]) + p
+        conn.sendall(hex(len(body))[2:].encode() + b"\r\n" + body + b"\r\n")
+    conn.sendall(b"0\r\n\r\n")
+    conn.close()
+
+
+def _netclient_fakes(ports, done):
+    """The netclients path's three fake servers, in a process of its own:
+    a SpyServer (int16 IQ), a Hermes (UDP USB packets) and a Spectran HTTP
+    stream, each streaming its station once, paced to real time."""
+    import socket
+
+    socks = {}
+    for kind, stype in (("spy", socket.SOCK_STREAM),
+                        ("hermes", socket.SOCK_DGRAM),
+                        ("spectran", socket.SOCK_STREAM)):
+        s = socket.socket(socket.AF_INET, stype)
+        s.bind(("127.0.0.1", 0))
+        s.settimeout(300.0)
+        if stype == socket.SOCK_STREAM:
+            s.listen(1)
+        socks[kind] = s
+    wires = {kind: net_wire(kind) for kind in socks}
+    ports.put({kind: s.getsockname()[1] for kind, s in socks.items()})
+    serve = {"spy": _serve_spyserver, "hermes": _serve_hermes,
+             "spectran": _serve_spectran}
+    threads = [threading.Thread(target=serve[k], args=(socks[k], wires[k]),
+                                daemon=True) for k in socks]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600.0)
+    done.set()
+
+
+def phase_netclients(card: str) -> dict:
+    """The other network sources into the receiver on the card: one
+    spawned process serves a SpyServer (int16 at 2.5 Msps, a stereo WFM
+    station), a Hermes (384 kHz, an AM station: `agc_scan`) and a Spectran
+    HTTP stream (float32 at 2 Msps, an NFM station), NET_SECONDS each,
+    paced; the port's `SpyServerClient`, `HermesClient` and
+    `SpectranHttpClient` each feed a `Receiver` with one VFO on the card,
+    one after the other.  The IQ each received must be bit-equal to the
+    same wire bytes decoded by the client's own decoding on the host."""
+    import multiprocessing as mp
+    import socket
+
+    from sdrtpu_torch.apps import live_radio as live
+    from sdrtpu_torch.apps.receiver import IQFrontend, Receiver, VfoConfig
+    from sdrtpu_torch.io import hermes, spectran_http, spyserver
+
+    ctx = mp.get_context("spawn")
+    ports_q, done = ctx.Queue(), ctx.Event()
+    proc = ctx.Process(target=_netclient_fakes, args=(ports_q, done),
+                       daemon=True)
+    proc.start()
+    out = {}
+    try:
+        wires = {kind: net_wire(kind) for kind in ("spy", "hermes",
+                                                   "spectran")}
+        decoded = {
+            "spy": np.concatenate([spyserver.decode_iq(
+                spyserver.MSG_INT16_IQ, b) for b in wires["spy"]]),
+            "hermes": np.concatenate([hermes.parse_usb_packet(p)
+                                      for p in wires["hermes"]]),
+            "spectran": np.concatenate([spectran_http.decode_iq(p)
+                                        for p in wires["spectran"]])}
+        ports = ports_q.get(timeout=300.0)
+        cfg = {"spy": (SPY_FS, SPY_OFFSET, "wfm"),
+               "hermes": (HERMES_FS, HERMES_OFFSET, "am"),
+               "spectran": (SPECTRAN_FS, SPECTRAN_OFFSET, "nfm")}
+        for kind, (fs, off, mode) in cfg.items():
+            audio, received = [], []
+            fe = IQFrontend(fs, {"v0": VfoConfig(off, mode)}, spectrum=False,
+                            device="cuda")
+            rx = Receiver(fe, audio_sinks={"v0": audio.append},
+                          baseband_sinks=[lambda b: received.append(
+                              np.array(b))])
+            rx.warmup()
+            counters = kernel_counters()
+            for fn in counters.values():
+                fn.launches = 0
+            if kind == "spy":
+                src = spyserver.SpyServerClient("127.0.0.1", ports["spy"])
+                if src.wait_device_info(30.0) is None:
+                    raise AssertionError("spyserver: no device info")
+                src.set_frequency(100e6)
+                src.start_stream(spyserver.FORMAT_INT16)
+            elif kind == "hermes":
+                src = hermes.HermesClient(("127.0.0.1", ports["hermes"]))
+                # room for 1.3 s of packets, should the reader wait
+                src._sock.setsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF,
+                                     4 << 20)
+                src.start()
+                src.set_samplerate(int(HERMES_FS))
+                src.set_frequency(7.1e6)
+            else:
+                src = spectran_http.SpectranHttpClient("127.0.0.1",
+                                                       ports["spectran"])
+            total = len(decoded[kind])
+            run = live.stream(src, rx, total, timeout_s=3 * NET_SECONDS + 60)
+            torch.cuda.synchronize()
+            launches = {name: fn.launches for name, fn in counters.items()}
+            if kind == "spy":
+                src.stop_stream()
+            src.close()
+            got = np.concatenate(received)
+            blocks = -(-total // rx.block_len)
+            want = expected_launches(agc_scan=blocks if mode == "am" else 0)
+            problems = []
+            if not np.array_equal(got, decoded[kind]):
+                problems.append(f"received {len(got)} samples of {total}, "
+                                "not the wire's decode")
+            if launches != want:
+                problems.append(f"launched {launches}, want {want}")
+            tail = np.concatenate(audio, axis=-1)[:, -48000:]
+            tones = [dominant_hz(tail[0]), dominant_hz(tail[1])]
+            expect = {"wfm": [440.0, 1200.0], "am": [HERMES_TONE],
+                      "nfm": [SPECTRAN_TONE]}[mode]
+            if any(abs(t - e) > 6.0 for t, e in zip(tones, expect)):
+                problems.append(f"recovered {tones}, sent {expect}")
+            if problems:
+                raise AssertionError(f"netclients {kind}: " + "; ".join(
+                    problems))
+            elapsed = run["t_end"] - run["t_first"]
+            out[kind] = {"mode": mode, "samplerate": fs,
+                         "block_len": rx.block_len, "samples": total,
+                         "kernel_launches": launches,
+                         "recovered_hz": tones[:len(expect)],
+                         "real_time_factor": total / fs / elapsed,
+                         "push_busy_share": run["push_s"] / elapsed}
+            log(f"netclients: {kind} done, {out[kind]}")
+        if not done.wait(60.0):
+            raise AssertionError("netclients: the fakes did not finish")
+    finally:
+        proc.join(30.0)
+        if proc.is_alive():
+            proc.terminate()
+            proc.join(10.0)
+    launches = {name: sum(r["kernel_launches"][name] for r in out.values())
+                for name in kernel_counters()}
+    return {"netclients": f"one process of fakes -> SpyServer (int16, "
+                          f"{SPY_FS / 1e6} Msps, WFM), Hermes (UDP, "
+                          f"{HERMES_FS / 1e3:.0f} kHz, AM), Spectran HTTP "
+                          f"(float32, {SPECTRAN_FS / 1e6:.0f} Msps, NFM), "
+                          f"{NET_SECONDS:.0f} s each, paced -> one-VFO "
+                          f"receivers on the card",
+            "kernel_launches": launches, **out, "card": card}
+
+
 def main(argv) -> int:
     t_start = time.perf_counter()
     paths = {}
@@ -3634,6 +4338,10 @@ def main(argv) -> int:
         done(f"{name} path")
     paths["live"] = phase_live(dev["card"], paths["receiver"]["msps"])
     done("live path")
+    paths["remote"] = phase_remote(dev["card"])
+    done("remote path")
+    paths["netclients"] = phase_netclients(dev["card"])
+    done("netclients path")
     for k in kernels:
         if k["name"] in ("costas_scan", "mm_scan", "viterbi_decode"):
             k["launches"] = paths["meteor"]["kernel_launches"][k["name"]]
@@ -3677,6 +4385,9 @@ def main(argv) -> int:
                                      "kernel_check"]}
         if k["name"] == "agc_scan":
             k["launches"] = paths["receiver"]["kernel_launches"]["agc_scan"]
+            for name in ("remote", "netclients"):
+                k[f"{name}_path_launches"] = paths[name]["kernel_launches"][
+                    "agc_scan"]
         if k["name"] == "pll_scan":
             k["launches"] = paths["pll"]["kernel_launches"]["pll_scan"]
         if k["name"] == "chunk_poly":  # once per fused group and block
@@ -3684,12 +4395,15 @@ def main(argv) -> int:
                 paths["receiver"]["kernel_launches"]["chunk_poly"])
             k["live_path_launches"] = (
                 paths["live"]["kernel_launches"]["chunk_poly"])
+            k["remote_path_launches"] = (
+                paths["remote"]["kernel_launches"]["chunk_poly"])
     assert all(k["launches"] for k in kernels), [
         (k["name"], k["launches"]) for k in kernels]
     print(json.dumps({"kernels": kernels}), flush=True)
     for name in ("fft", "pallas", "receiver", "pll", "ctcss", "meteor",
                  "rds", "tf32", "dab", "falcon9", "kg_sstv", "m17", "ryfi",
-                 "pfb", "paging", "vor", "atv", "live", "scanner"):
+                 "pfb", "paging", "vor", "atv", "live", "scanner", "remote",
+                 "netclients"):
         print(json.dumps(paths[name]), flush=True)
     print(json.dumps({"timer_fallbacks": TIMER_FALLBACKS}), flush=True)
     print(json.dumps({"ok": True, "device": {

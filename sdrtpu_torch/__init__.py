@@ -25,18 +25,22 @@ Subpackages mirror sdrtpu: ``graph`` (stream-op protocol, checkpoints),
 ``kernels`` (DSP ops, the modulators of ``kernels.mod``), ``shard``
 (channelizer: dense and sparse alias fold, the PFB filter bank), ``apps``
 (the multi-VFO WBFM pipeline, the radio chain, the receiver and its
-command line, the live radio, the band scanner, scanner and recorder),
-``fec`` (Viterbi, Reed-Solomon, Golay), ``decoders`` (CCSDS frames, RDS,
-DAB, Falcon 9, KG-STV, M17 with its codec2 binding, RyFi, POCSAG, FLEX,
-HRPT, ATV, VOR), ``io`` (WAV and soft-symbol files, network IQ ingest and
-egress, the rtl_tcp client, the audio sink), ``native`` (the C++ ingest
-pump, ring and IQ conversion, built with g++ on first use); ``metrics``
-is the receiver's registry, and ``convert`` carries state between the
-two packages.
+command line, the live radio, the band scanner, scanner and recorder,
+and the host edge around the receiver: the SDR++ baseband server
+``sdrtpu-torch-server`` with its remote menus, the rigctl server and
+client, the web spectrum view, the module registry and RPC, tuning
+policies, scheduler, bookmarks, band plans, themes, presence and
+diagrams), ``fec`` (Viterbi, Reed-Solomon, Golay), ``decoders`` (CCSDS
+frames, RDS, DAB, Falcon 9, KG-STV, M17 with its codec2 binding, RyFi,
+POCSAG, FLEX, HRPT, ATV, VOR), ``io`` (WAV and soft-symbol files,
+network IQ ingest and egress, the SDR++ server protocol with its SmGui
+draw lists and compression, the rtl_tcp, SpyServer, Hermes and Spectran
+clients, the audio sink), ``native`` (the C++ ingest pump, ring and IQ
+conversion, built with g++ on first use); ``metrics`` is the receiver's
+registry, and ``convert`` carries state between the two packages.
 
-Not ported yet (ROADMAP.md M14 rest, M12, M13): the SDR++ server
-protocol and the other network clients, the UI-side apps, multi-GPU
-sharding and the benchmark tooling.
+Not ported yet (ROADMAP.md M12, M13): multi-GPU sharding and the
+benchmark tooling.
 """
 
 from __future__ import annotations
