@@ -21,29 +21,44 @@ Phases, each fatal:
    kernel's own output rotation, also over a 2.5 M-sample block at the
    band edges and with a ragged channel group), with its time beside
    its bound, its grid on this card and its registers;
-4. fft flagship: the 8-VFO WBFM pipeline off a 10 Msps capture,
+4. multichip: `ShardedWbfmPipeline` over every card present, one NCCL
+   process a card (built kernels only loaded), on the reference's mesh
+   rule (four cards: a (2, 2) channel x time mesh with the halo crossing
+   cards; one card: one process on a (1, 1) mesh, no collective), at
+   two plans: the 8-VFO flagship (10 Msps, 500 000-sample global blocks,
+   ``skip_rotator``, 8 blocks) and BASELINE config 5's 64 VFOs off 50
+   Msps (2.5 M-sample blocks, 6 blocks); the gathered audio within 1e-4
+   of the unsharded pipeline on the card from block 3, chunk_poly once
+   a block on every rank; ms per block per rank, the bytes of the halo,
+   all-gather and all-reduce a block, the weak-scaling t1 and tN;
+5. tooling: `measure_op` of the flagship's FftDecimatorChain and of a
+   317-tap `Fir` at 500 000 samples, `measure_hbm_peak` (at most 105 %
+   of the data sheet's 3.35 TB/s), `profile_flagship` of the 8-VFO
+   flagship against the H100's peaks (every stage's ``hbm_util`` at
+   most 1.05), `four_step_fft` against ``torch.fft.fft`` at N = 65 536;
+6. fft flagship: the 8-VFO WBFM pipeline off a 10 Msps capture,
    500k-sample blocks, 65536-bin waterfall at 20 Hz, ``skip_rotator``,
    through ``scan_repeat`` over 256 blocks;
-5. pallas path: the same pipeline with ``channelizer_method="pallas"``
+7. pallas path: the same pipeline with ``channelizer_method="pallas"``
    (stage 1 in mix_decimate, one launch per block) and the rotator on;
-6. scan kernels: agc_scan and pll_scan against their plain PyTorch loops
+8. scan kernels: agc_scan and pll_scan against their plain PyTorch loops
    on the card, at the step counts the receiver and the WFM pilot PLL
    launch and one long shape each, timed beside the plain loop;
-7. receiver path: `IQFrontend` + `Receiver.push`/`flush` off one 10 Msps
+9. receiver path: `IQFrontend` + `Receiver.push`/`flush` off one 10 Msps
    capture with a 65536-bin waterfall at 20 Hz and eight VFOs — three
    wfm stereo (one fft channelizer group, K1), two nfm (a second group),
    am, usb and cw (per-VFO DDCs; agc_scan) — over 32 M samples at
    ``scan_batch`` 1 and 8, with a live retune of a grouped and a per-VFO
    channel and a demodulator switch am -> nfm -> am in mid stream;
-8. pll path: `BroadcastFm(pilot_mode="pll", rds_out=True)` over 8 blocks
+10. pll path: `BroadcastFm(pilot_mode="pll", rds_out=True)` over 8 blocks
    of 12 500 samples (pll_scan, one launch per block);
-9. ctcss: an NFM chain with the CTCSS squelch on 50 ms blocks, card
+11. ctcss: an NFM chain with the CTCSS squelch on 50 ms blocks, card
    against CPU, and the squelch op's time per block;
-10. sync kernels: costas_scan, mm_scan and viterbi_decode against their
+12. sync kernels: costas_scan, mm_scan and viterbi_decode against their
    plain PyTorch versions, at the RDS path's shapes, a few short ones
    and the meteor path's longest Viterbi, timed beside the plain
    versions and at the meteor path's shapes;
-11. meteor path: the Meteor M2 LRPT chain of examples/meteor_lrpt.py at
+13. meteor path: the Meteor M2 LRPT chain of examples/meteor_lrpt.py at
    the configuration's published parameters — `MeteorDemod` on 16 blocks
    of 1 s at 150 ksps (costas_scan, mm_scan), the ambiguity resolver's
    Viterbi (viterbi_decode), ASM search and RS(255,223) on the host, a
@@ -53,45 +68,45 @@ Phases, each fatal:
    lock on the other rotation; card against CPU over the first block,
    and each kernel held against its plain version on that block's
    inputs;
-12. rds path: the RDS fixture through `BroadcastFm(pilot_mode="pll")`'s
+14. rds path: the RDS fixture through `BroadcastFm(pilot_mode="pll")`'s
    tap, `RdsDemod` and `RdsDecoder`: PI 0xF00D, PS "SDRTPU  ";
-13. viterbi rates and mm_scan banks (run after the sync kernels):
+15. viterbi rates and mm_scan banks (run after the sync kernels):
    viterbi_decode at rates 1/3 and 1/4 with K = 7 and 5, and mm_scan at
    16 taps x 256 phases, 8 x 1024 and 32 x 1600 (past 48 KB of shared
    memory), bit-equal to their plain versions on the card;
-14. tf32: TF32 turned on globally; the alias fold, the 317-tap pilot FIR
+16. tf32: TF32 turned on globally; the alias fold, the 317-tap pilot FIR
    and the audio resampler at the flagship's shapes give the bits of the
    default flags;
-15. dab path: 10 DAB mode-I frames (EN 300 401 at its published
+17. dab path: 10 DAB mode-I frames (EN 300 401 at its published
    parameters) after junk samples, AWGN 0.02: null search on the host,
    the OFDM demodulator on the card, the FIC's four codewords as one
    rate-1/4 viterbi_decode launch a frame; all 120 FIBs CRC-valid and
    equal to those sent; the first frame against the CPU;
-16. falcon9 path: 64 RS frames of the Falcon 9 downlink at 6 Msps and
+18. falcon9 path: 64 RS frames of the Falcon 9 downlink at 6 Msps and
    3.5714 Mbaud in blocks of 60 000 (float mm_scan a block), RS and
    packets on the host; every frame, 0 RS failures, the packets sent;
    the first block against the CPU;
-17. kg_sstv, m17 and ryfi paths: KG-STV at 4800 Hz (two frames), M17 at
+19. kg_sstv, m17 and ryfi paths: KG-STV at 4800 Hz (two frames), M17 at
    48 kHz (an LSF and 16 stream frames, after examples/m17_voice.py's
    alternating preamble and again after a random one), the RyFi link of
    examples/ryfi_link.py (six frames): payloads, callsigns and frame
    numbers those sent and the CPU's (RyFi: over its first 5 blocks);
    the CPU run's plain Costas, M&M and Viterbi calls are launched again
    as the kernels on the card and held;
-18. pfb path: the flagship with ``channelizer_method="pfb"`` (the shared
+20. pfb path: the flagship with ``channelizer_method="pfb"`` (the shared
    polyphase filter bank: no hand kernel), the rotator on: every VFO's
    tones, card vs CPU, Msps, the fold's device ms per block;
-19. paging path: ten POCSAG pages over the RF chain (`GfskMod` ->
+21. paging path: ten POCSAG pages over the RF chain (`GfskMod` ->
    `Gfsk`, one mm_scan a 4 800-sample block -> `PocsagDecoder`), every
    page the one sent, the CPU's mm_scan calls held on the card; FLEX and
    HRPT frames handed over as tensors on the card;
-20. vor path: five bearings, four 1 s blocks each, within 2 degrees,
+22. vor path: five bearings, four 1 s blocks each, within 2 degrees,
    card within 0.01 degree of the CPU;
-21. atv path: four PAL frames (625 x 945 samples), lines card vs CPU,
+23. atv path: four PAL frames (625 x 945 samples), lines card vs CPU,
    the active region against the image, the frame assembler;
-22. scanner path: the band scanner's selftest (two NFM stations found and
+24. scanner path: the band scanner's selftest (two NFM stations found and
    recorded, each WAV its station's tone);
-23. live path: network IQ (loopback TCP, i16, the native pump) into the
+25. live path: network IQ (loopback TCP, i16, the native pump) into the
    receiver path's VFO set and eight paced audio sinks for 8 s paced to
    real time: every sample received, nothing dropped, no underrun after
    the first second, the tones, chunk_poly and agc_scan launches exact,
@@ -99,7 +114,7 @@ Phases, each fatal:
    send-to-audio latency, with no profiler; the same bytes unpaced; 4 s
    more under the profiler for the busy share; and a fake rtl_tcp
    server at 2.4 Msps u8 into one WFM VFO for 5 s;
-24. remote path: ``python -m sdrtpu_torch.apps.server`` (a process of its
+26. remote path: ``python -m sdrtpu_torch.apps.server`` (a process of its
    own) serves the receiver capture as an int16 WAV over the SDR++ server
    protocol; `SdrppClient` (i16) feeds the receiver path's VFO set on the
    card for 4.8 s: the SmGui menu round trip and the rate before START;
@@ -110,7 +125,7 @@ Phases, each fatal:
    nfm and back; every sample the looped capture's wire decode, the
    tones after each event, card vs CPU on the first two blocks; then a
    second session, zstd where there is one, under the profiler;
-25. netclients path: one process of fakes serves a SpyServer (int16,
+27. netclients path: one process of fakes serves a SpyServer (int16,
    2.5 Msps, WFM), a Hermes (UDP, 384 kHz, AM) and a Spectran HTTP stream
    (float32, 2 Msps, NFM) for 2 s each; each port client feeds a
    one-VFO receiver on the card: the IQ bit-equal to the wire bytes'
@@ -119,15 +134,17 @@ Phases, each fatal:
 Around each path's run every kernel's launch count is set to 0 and read,
 and must be exact for all seven kernels (fft: chunk_poly 32; pallas:
 mix_decimate 256; receiver, pll, meteor, rds, dab, falcon9, kg_sstv,
-m17, ryfi, paging, live, remote and netclients: see their phases; pfb,
-vor, atv, scanner and rtl_tcp: none; every other count 0); then the same
-port runs on the CPU, and the card's output is held against it.
+m17, ryfi, paging, live, remote and netclients: see their phases;
+multichip: chunk_poly once a block on each rank; pfb, vor, atv, scanner
+and rtl_tcp: none; every other count 0); then the same port runs on the
+CPU (multichip: the unsharded pipeline on the card), and the card's
+output is held against it.
 
 Standard output: the card line, the ``kernels`` JSON line, the fft
 flagship line, the pallas path line, the receiver, pll, ctcss, meteor,
 rds, tf32, dab, falcon9, kg_sstv, m17, ryfi, pfb, paging, vor, atv, live,
-scanner, remote and netclients lines, the timer fallbacks line, and last
-``{"ok": true, "device": {...}}``.
+scanner, remote, netclients, multichip and tooling lines, the timer
+fallbacks line, and last ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -145,8 +162,7 @@ import time
 import numpy as np
 import torch
 
-H100_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
-H100_FP32_FLOPS = 67e12    # H100 SXM fp32 outside the tensor cores
+from sdrtpu_torch import roofline as rooflib  # the card's peaks and bounds
 K2_REL_TOL = 1e-5  # mix_decimate vs plain: max_abs_err / max|plain|
 AUDIO_ATOL = 2e-4  # card vs CPU audio, as tests/test_torch_pipeline.py
 SPEC_DB_ATOL = 0.02  # card vs CPU waterfall bins within 80 dB of the peak
@@ -378,13 +394,38 @@ def receiver_plans() -> dict:
     return plans
 
 
-def phase_kernels(flagship_plan, rx_plans: dict) -> list[dict]:
+def multichip_plans() -> dict:
+    """(valid, ratio, nif, chunks per block) of each rank's FFT front on
+    the multichip path, for each plan of `MULTICHIP_PLANS` at one and two
+    time-ranks: what `ShardedWbfmPipeline` hands chunk_poly."""
+    from sdrtpu_torch.apps.wbfm_pipeline import WbfmMultiVfoPipeline
+    from sdrtpu_torch.shard.channelizer import FftDecimatorChain
+
+    plans = {}
+    for name, (n_vfo, fs, block, _) in MULTICHIP_PLANS.items():
+        offsets = np.linspace(-0.4 * fs, 0.4 * fs, n_vfo)
+        rr = WbfmMultiVfoPipeline(offsets, fs, block,
+                                  channelizer_method="fft", skip_rotator=True,
+                                  device="cpu").channelizer.resampler
+        stages = [(s.taps, s.decimation) for s in rr.predecim.stages]
+        for n_time in (1, 2):
+            f = FftDecimatorChain(offsets, fs, stages, block // n_time,
+                                  skip_rotator=True, device="cpu")
+            plans[f"{name}/{n_time}"] = (f.valid, f.ratio, f.nif,
+                                         f.n_chunks)
+    return plans
+
+
+def phase_kernels(flagship_plan, rx_plans: dict,
+                  mc_plans: dict) -> list[dict]:
     """chunk_poly against chunk_poly_ref, exact, at every checked shape
-    (the test shapes, the flagship's sub-window, the 64-VFO plan and the
-    receiver path's two fused groups), each timed beside its plain
-    version and the one-call library copy.  The JSON entry's own numbers
-    are at the flagship sub-window shape (what the fft path launches);
-    the receiver path's shapes stand under ``receiver_shapes``.  ``ms``
+    (the test shapes, the flagship's sub-window, the 64-VFO plan, the
+    receiver path's two fused groups and the multichip path's rank
+    fronts), each timed beside its plain version and the one-call
+    library copy.  The JSON entry's own numbers are at the flagship
+    sub-window shape (what the fft path launches); the receiver path's
+    shapes stand under ``receiver_shapes``, the multichip path's under
+    ``multichip_shapes``.  ``ms``
     is time on the card from the profiler, ``event_ms`` CUDA events over
     back-to-back calls."""
     from sdrtpu_torch.kernels import chunks
@@ -400,6 +441,8 @@ def phase_kernels(flagship_plan, rx_plans: dict) -> list[dict]:
     ]
     # the receiver path: one launch per fused group and 2M-sample block
     shapes += [s for s in rx_plans.values() if s not in shapes]
+    # the multichip path: one launch per rank and block
+    shapes += [s for s in mc_plans.values() if s not in shapes]
     worst = 0.0
     timings = {}
     for v, r, q, p in shapes:
@@ -426,7 +469,8 @@ def phase_kernels(flagship_plan, rx_plans: dict) -> list[dict]:
         fns = {"": lambda: chunks.chunk_poly(ext, v, r, q, p),
                "plain_": lambda: chunks.chunk_poly_ref(ext, v, r, q, p),
                "library_": library}
-        timings[(v, r, q, p)] = t = {"bound_ms": nbytes / H100_BYTES_PER_S * 1e3}
+        timings[(v, r, q, p)] = t = {
+            "bound_ms": rooflib.bound(nbytes, 0)["bound_ms"]}
         for key, fn in fns.items():
             t[key + "ms"] = device_ms(
                 fn, 20, "chunk_poly_kernel" if key == "" else None)
@@ -454,11 +498,16 @@ def phase_kernels(flagship_plan, rx_plans: dict) -> list[dict]:
         "other_shapes": [
             {"shape": list(k), **{n: round(t, 6) for n, t in v.items()}}
             for k, v in timings.items()
-            if k != (valid, R, nif, P_main) and k not in rx_plans.values()],
+            if k != (valid, R, nif, P_main) and k not in rx_plans.values()
+            and k not in mc_plans.values()],
         "receiver_shapes": [
             {"group_if_hz": g, "shape": list(k),
              **{n: round(t, 6) for n, t in timings[k].items()}}
             for g, k in rx_plans.items()],
+        "multichip_shapes": [
+            {"plan_n_time": g, "shape": list(k),
+             **{n: round(t, 6) for n, t in timings[k].items()}}
+            for g, k in mc_plans.items()],
     }]
 
 
@@ -841,10 +890,9 @@ def wall_ms(fn) -> float:
 
 def roofline(nbytes: int, flops: int) -> dict:
     """The contract's bound: the larger of bytes over the card's memory
-    rate and float32 operations over its peak rate, and which it is."""
-    by_bytes, by_ops = nbytes / H100_BYTES_PER_S, flops / H100_FP32_FLOPS
-    return {"bound_ms": max(by_bytes, by_ops) * 1e3,
-            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+    rate and float32 operations over its peak rate, and which it is
+    (`sdrtpu_torch.roofline.bound`)."""
+    return rooflib.bound(nbytes, flops)
 
 
 def serial_chain_ms(steps: int, chain) -> float:
@@ -4267,6 +4315,223 @@ def phase_netclients(card: str) -> dict:
                           f"receivers on the card",
             "kernel_launches": launches, **out, "card": card}
 
+# -- multichip and tooling ---------------------------------------------------
+
+MULTICHIP_PLANS = {  # name: (VFOs, input rate, global block, blocks)
+    "flagship": (8, 10_000_000.0, 500_000, 8),
+    "vfo64": (64, 50_000_000.0, 2_500_000, 6),  # BASELINE config 5
+}
+MULTICHIP_SKIP = 3      # blocks 0-2: the filter-fill transient
+MULTICHIP_ATOL = 1e-4   # sharded vs unsharded audio, tests/test_shard.py:270
+MULTICHIP_SCALING_REPS = 10  # best of: host time spreads 2x between calls
+
+
+def all_cards() -> list[str]:
+    """nvidia-smi's name and power limit of every card on the machine."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return [line.strip() for line in out.stdout.splitlines() if line.strip()]
+
+
+def multichip_capture(offsets, fs, n, device) -> torch.Tensor:
+    """One stereo FM station at each offset (as `stereo_capture`), made in
+    float64 on the card, handed back on the host as complex64: the global
+    capture every rank's call takes."""
+    t = torch.arange(n, dtype=torch.float64, device=device) / fs
+    x = torch.zeros(n, dtype=torch.complex128, device=device)
+    for i, fc in enumerate(offsets):
+        left = torch.sin(2 * np.pi * (400 + 150 * i) * t)
+        right = torch.sin(2 * np.pi * (900 + 150 * i) * t)
+        mpx = (0.45 * (left + right) + 0.1 * torch.sin(2 * np.pi * 19000 * t)
+               + 0.45 * (left - right) * torch.sin(2 * np.pi * 38000 * t))
+        phase = torch.cumsum(2 * np.pi * 75000.0 * mpx / fs, 0)
+        x += 0.1 * torch.exp(1j * (2 * np.pi * fc * t + phase))
+    return x.to(torch.complex64).cpu()
+
+
+def multichip_rank(n_ranks: int) -> dict:
+    """One rank of the multichip phase (its NCCL group joined, its card
+    set): each plan of `MULTICHIP_PLANS` through `ShardedWbfmPipeline`,
+    block by block, with chunk_poly's launches counted around the run and
+    the collectives' bytes read from the mesh; rank 0 holds the gathered
+    audio against the unsharded pipeline on its card; then the weak-
+    scaling times (one rank's share of the work, unsharded, against the
+    sharded call)."""
+    from sdrtpu_torch.apps.wbfm_pipeline import WbfmMultiVfoPipeline
+    from sdrtpu_torch.shard.flagship import ShardedWbfmPipeline
+    from sdrtpu_torch.shard.mesh import (all_gather, make_mesh,
+                                         shard_channel_state)
+    from sdrtpu_torch.shard.multihost import scaling_efficiency
+
+    n_time = 2 if (n_ranks >= 4 and n_ranks % 2 == 0) else 1
+    n_channel = n_ranks // n_time
+    mesh = make_mesh(n_channel, n_time)
+    dev = mesh.device
+    out = {"rank": mesh.rank, "coords": [mesh.index("channel"),
+                                         mesh.index("time")],
+           "card": torch.cuda.get_device_name(dev), "plans": {}}
+    for name, (n_vfo, fs, block, n_blocks) in MULTICHIP_PLANS.items():
+        offsets = np.linspace(-0.4 * fs, 0.4 * fs, n_vfo)
+        x = multichip_capture(offsets, fs, n_blocks * block, dev)
+        sh = ShardedWbfmPipeline(offsets, fs, block, mesh, skip_rotator=True)
+        state = shard_channel_state(mesh, sh.init_state(), n_vfo)
+        before = dict(mesh.traffic)
+        audio, block_ms = [], []
+        torch.cuda.synchronize(dev)
+        counters = kernel_counters()
+        for fn in counters.values():
+            fn.launches = 0
+        with torch.inference_mode():
+            for b in range(n_blocks):
+                t0 = time.perf_counter()
+                state, a = sh(state, x[b * block:(b + 1) * block])
+                torch.cuda.synchronize(dev)
+                block_ms.append((time.perf_counter() - t0) * 1e3)
+                audio.append(a)
+        launches = {k: fn.launches for k, fn in counters.items()}
+        if launches != expected_launches(chunk_poly=n_blocks):
+            raise AssertionError(f"multichip {name}: rank {mesh.rank} "
+                                 f"launched {launches}, want chunk_poly "
+                                 f"{n_blocks} and nothing else")
+        res = {"chunk_poly_launches": launches["chunk_poly"],
+               "block_ms": block_ms,
+               "ms_per_block": float(np.median(block_ms[1:])),
+               "bytes_per_block": {k: (mesh.traffic[k] - before[k])
+                                   / n_blocks for k in mesh.traffic}}
+        with torch.inference_mode():
+            got = all_gather(mesh, torch.stack(audio), "channel", dim=2)
+            if mesh.rank == 0:
+                pipe = WbfmMultiVfoPipeline(
+                    offsets, fs, block, channelizer_method="fft",
+                    skip_rotator=True, device=dev)
+                st_u, errs = pipe.init_state(), []
+                for b in range(n_blocks):
+                    st_u, ref = pipe(st_u, x[b * block:(b + 1) * block].to(
+                        dev))
+                    errs.append(float((got[b] - ref).abs().max()))
+                assert tuple(got.shape[1:]) == tuple(ref.shape) == (
+                    2, n_vfo, pipe.out_len(block)), (got.shape, ref.shape)
+                res["max_abs_err_by_block"] = errs
+                res["max_abs_err"] = max(errs[MULTICHIP_SKIP:])
+                if not res["max_abs_err"] < MULTICHIP_ATOL:
+                    raise AssertionError(
+                        f"multichip {name}: sharded vs unsharded audio "
+                        f"{errs} (blocks >= {MULTICHIP_SKIP} must be within "
+                        f"{MULTICHIP_ATOL})")
+                del pipe, st_u
+            # weak scaling: one rank's share (its channel rows, its time
+            # span) unsharded on its card, against the sharded call
+            c_local, span = n_vfo // n_channel, block // n_time
+            one = WbfmMultiVfoPipeline(offsets[:c_local], fs, span,
+                                       channelizer_method="fft",
+                                       skip_rotator=True, device=dev)
+            st1, x1, xn = one.init_state(), x[:span], x[:block]
+            res["scaling"] = scaling_efficiency(
+                lambda: one(st1, x1.to(dev)), lambda: sh(state, xn),
+                (), (), n_ranks, reps=MULTICHIP_SCALING_REPS)
+        out["plans"][name] = res
+        del sh, state, audio, got, one, st1, x
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_multichip() -> dict:
+    """The sharded flagship over every card present, one NCCL process a
+    card (on one card: one process, a (1, 1) mesh, no collective).  Both
+    plans of `MULTICHIP_PLANS` must hold the unsharded pipeline's audio
+    within MULTICHIP_ATOL after the transient, with chunk_poly launched
+    once a block on every rank."""
+    from sdrtpu_torch.shard.multihost import run_processes
+
+    n = torch.cuda.device_count()
+    cards = all_cards()
+    workdir = os.path.join("build", "chip_smoke", "multichip")
+    os.makedirs(workdir, exist_ok=True)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = run_processes(multichip_rank, n, workdir, args=(n,),
+                          device="cuda", timeout=600)
+    n_time = 2 if (n >= 4 and n % 2 == 0) else 1
+    line = {"path": "multichip", "ranks": n, "mesh": [n // n_time, n_time],
+            "cards": cards, "halo_crossed_cards": n_time > 1,
+            "seconds": time.perf_counter() - t0, "plans": {}}
+    if n_time == 1:
+        line["note"] = ("no halo crossed a card: the time axis has one rank"
+                        + ("" if n > 1 else ", and the mesh one card"))
+    for name, (n_vfo, fs, block, n_blocks) in MULTICHIP_PLANS.items():
+        per = [r["plans"][name] for r in ranks]
+        line["plans"][name] = {
+            "vfos": n_vfo, "fs": fs, "global_block": block,
+            "blocks": n_blocks,
+            "max_abs_err": per[0]["max_abs_err"],
+            "max_abs_err_by_block": per[0]["max_abs_err_by_block"],
+            "chunk_poly_launches_per_rank": [p["chunk_poly_launches"]
+                                             for p in per],
+            "ms_per_block_per_rank": [p["ms_per_block"] for p in per],
+            "block_ms_per_rank": [[round(v, 3) for v in p["block_ms"]]
+                                  for p in per],
+            # summed over the ranks: what crossed between cards a block
+            "halo_bytes_per_block": sum(p["bytes_per_block"]["halo"]
+                                        for p in per),
+            "allgather_bytes_per_block": sum(
+                p["bytes_per_block"]["allgather"] for p in per),
+            "allreduce_bytes_per_block": sum(
+                p["bytes_per_block"]["allreduce"] for p in per),
+            "scaling": per[0]["scaling"],
+            "t1_tN_per_rank": [[p["scaling"]["t_single"],
+                                p["scaling"]["t_sharded"]] for p in per],
+        }
+        log(f"multichip {name}: {json.dumps(line['plans'][name])}")
+    return line
+
+
+TOOLING_FFT_N = 65536
+
+
+def phase_tooling(card: str) -> dict:
+    """The port's measurement tooling on the card: `measure_op` of the
+    flagship's FftDecimatorChain and of a 317-tap `Fir` at 500 000
+    samples, `measure_hbm_peak` (it raises above 105 % of the data
+    sheet's 3.35 TB/s), `profile_flagship` of the 8-VFO flagship against
+    the H100's peaks (every stage's ``hbm_util`` at most 1.05), and
+    `four_step_fft` against ``torch.fft.fft`` at N = 65 536."""
+    from sdrtpu_torch.benchmark import measure_op
+    from sdrtpu_torch.kernels import taps as tapsmod
+    from sdrtpu_torch.kernels.fftspec import four_step_fft
+    from sdrtpu_torch.kernels.fir import Fir
+
+    pipe, x = build_flagship("cuda")
+    chain = pipe.channelizer.fused
+    pilot = tapsmod.band_pass(18750.0, 19250.0, 3000.0, 250000.0,
+                              odd_tap_count=True)
+    assert len(pilot) == 317, len(pilot)
+    fir = Fir(2.0 * np.real(pilot), dtype=torch.complex64, device="cuda")
+    ops = {"fft_decimator_chain": measure_op(chain, (pipe.block_len,)),
+           "fir_317": measure_op(fir, (500_000,))}
+    hbm = rooflib.measure_hbm_peak()
+    prof = rooflib.profile_flagship(pipe, x)
+    over = {k: v["hbm_util"] for k, v in prof["stages"].items()
+            if v.get("hbm_util", 0.0) > 1.05}
+    if over:
+        raise AssertionError(f"profile_flagship: hbm_util above 1.05: {over}")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    z = torch.randn(TOOLING_FFT_N, dtype=torch.complex64, device="cuda",
+                    generator=gen)
+    want, got = torch.fft.fft(z), four_step_fft(z)
+    fft = {"n": TOOLING_FFT_N,
+           "max_abs_err_of_peak": float((got - want).abs().max()
+                                        / want.abs().max()),
+           "four_step_ms": device_ms(lambda: four_step_fft(z), 20),
+           "torch_fft_ms": device_ms(lambda: torch.fft.fft(z), 20)}
+    if not fft["max_abs_err_of_peak"] < 1e-4:
+        raise AssertionError(f"four_step_fft: {fft}")
+    return {"path": "tooling", "card": card, "measure_op": ops,
+            "hbm_stream_read_gbps": hbm,
+            "hbm_share_of_data_sheet": hbm / rooflib.H100_PEAKS["hbm_gbps"],
+            "profile_flagship": prof, "four_step_fft": fft}
+
 
 def main(argv) -> int:
     t_start = time.perf_counter()
@@ -4284,9 +4549,14 @@ def main(argv) -> int:
     # the fft path launches chunk_poly once per sub-window of blocks
     rx_plans = receiver_plans()
     kernels = phase_kernels((fused.valid, fused.ratio, fused.nif,
-                             fused.n_chunks * plan_pipe._subk(256)), rx_plans)
+                             fused.n_chunks * plan_pipe._subk(256)), rx_plans,
+                            multichip_plans())
     kernels.append(phase_mix_decimate(built["mix_decimate"]))
     done("build and K1/K2 checks")
+    paths["multichip"] = phase_multichip()
+    done("multichip path")
+    paths["tooling"] = phase_tooling(dev["card"])
+    done("tooling")
     kernels += phase_seq_loops()
     done("seq loops")
     kernels += phase_sync_kernels()
@@ -4397,13 +4667,16 @@ def main(argv) -> int:
                 paths["live"]["kernel_launches"]["chunk_poly"])
             k["remote_path_launches"] = (
                 paths["remote"]["kernel_launches"]["chunk_poly"])
+            k["multichip_path_launches_per_rank"] = {
+                name: plan["chunk_poly_launches_per_rank"]
+                for name, plan in paths["multichip"]["plans"].items()}
     assert all(k["launches"] for k in kernels), [
         (k["name"], k["launches"]) for k in kernels]
     print(json.dumps({"kernels": kernels}), flush=True)
     for name in ("fft", "pallas", "receiver", "pll", "ctcss", "meteor",
                  "rds", "tf32", "dab", "falcon9", "kg_sstv", "m17", "ryfi",
                  "pfb", "paging", "vor", "atv", "live", "scanner", "remote",
-                 "netclients"):
+                 "netclients", "multichip", "tooling"):
         print(json.dumps(paths[name]), flush=True)
     print(json.dumps({"timer_fallbacks": TIMER_FALLBACKS}), flush=True)
     print(json.dumps({"ok": True, "device": {

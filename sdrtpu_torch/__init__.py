@@ -21,9 +21,13 @@ imports nothing of ``sdrtpu`` and nothing of JAX.
   matmuls run in full float32 whatever TF32 settings the caller made
   (`_precision.fp32_contractions`).
 
-Subpackages mirror sdrtpu: ``graph`` (stream-op protocol, checkpoints),
-``kernels`` (DSP ops, the modulators of ``kernels.mod``), ``shard``
-(channelizer: dense and sparse alias fold, the PFB filter bank), ``apps``
+Subpackages mirror sdrtpu: ``graph`` (stream-op protocol, checkpoints,
+the host-boundary ``CompiledOp``), ``kernels`` (DSP ops, the modulators
+of ``kernels.mod``), ``shard`` (channelizer: dense and sparse alias
+fold, the PFB filter bank; and the multi-GPU layer on
+``torch.distributed``: the (channel, time) process mesh, the halo
+exchange and prefix relock, the sharded flagship, process start-up and
+scaling measurement), ``apps``
 (the multi-VFO WBFM pipeline, the radio chain, the receiver and its
 command line, the live radio, the band scanner, scanner and recorder,
 and the host edge around the receiver: the SDR++ baseband server
@@ -37,10 +41,9 @@ network IQ ingest and egress, the SDR++ server protocol with its SmGui
 draw lists and compression, the rtl_tcp, SpyServer, Hermes and Spectran
 clients, the audio sink), ``native`` (the C++ ingest pump, ring and IQ
 conversion, built with g++ on first use); ``metrics`` is the receiver's
-registry, and ``convert`` carries state between the two packages.
-
-Not ported yet (ROADMAP.md M12, M13): multi-GPU sharding and the
-benchmark tooling.
+registry, ``benchmark`` (``measure_op``) and ``roofline`` (the stage
+models with the H100's peaks) measure, and ``convert`` carries state
+between the two packages.
 """
 
 from __future__ import annotations

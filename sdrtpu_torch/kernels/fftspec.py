@@ -8,7 +8,9 @@ skipped.  For even sizes the (-1)^i centering is folded into the window
 dB: ``10*log10(|X|^2 / fft_size^2 + 1e-20)``.
 
 The reference splits long transforms into a four-step FFT to dodge a
-slow TPU shape; here one ``torch.fft.fft`` computes the same transform.
+slow TPU shape; here one ``torch.fft.fft`` (cuFFT) computes the same
+transform, and `four_step_fft` is kept as the reference's numerical
+counterpart only: nothing on the main path calls it.
 """
 
 from __future__ import annotations
@@ -26,6 +28,39 @@ def gen_reshape_params(samplerate: float, fft_size: int, fft_rate: float):
     fft_interval = round(samplerate / fft_rate)
     nz = min(fft_interval, fft_size)
     return fft_interval - nz, nz
+
+
+def four_step_fft(x: torch.Tensor, n1: int | None = None) -> torch.Tensor:
+    """Length-N FFT of the last axis as two batched small FFTs.
+
+    Four-step Cooley-Tukey with N = N1*N2, n = n1*N2 + n2, k = k2*N1 + k1:
+
+        A[n2, k1] = FFT_N1(x[n1, n2] over n1)
+        B[k1, k2] = FFT_N2(A[n2, k1] * W^(k1*n2) over n2)
+        X[k2*N1 + k1] = B[k1, k2]
+
+    The reference's split (a small first factor, N1 = 2^(floor(log2 N)/2
+    - 2), halved until it divides N) and its float64 host twiddles in
+    complex64.  Its reason, a slow single long FFT row on the TPU, does
+    not hold for cuFFT: this is a numerical counterpart, not a speed
+    path.
+    """
+    N = int(x.shape[-1])
+    if n1 is None:
+        n1 = 1 << max(0, int(np.log2(max(N, 2))) // 2 - 2)
+        while n1 > 1 and N % n1:  # N need not be a power of two
+            n1 >>= 1
+    n2 = N // n1
+    assert n1 * n2 == N, (N, n1)
+    lead = x.shape[:-1]
+    x2 = x.to(torch.complex64).reshape(lead + (n1, n2))
+    a = torch.fft.fft(x2.transpose(-1, -2))  # (..., n2, n1) = A[n2, k1]
+    k1 = np.arange(n1)[None, :]
+    nn2 = np.arange(n2)[:, None]
+    w = np.exp(-2j * np.pi * (k1 * nn2) / N).astype(np.complex64)
+    b = torch.fft.fft((a * torch.as_tensor(w, device=x.device))
+                      .transpose(-1, -2))  # B[k1, k2]
+    return b.transpose(-1, -2).reshape(lead + (N,))
 
 
 class SpectrumAnalyzer(StreamOp):

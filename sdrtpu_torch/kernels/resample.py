@@ -132,6 +132,7 @@ class PolyphaseResampler(StreamOp):
         self.bank = bank
         if method not in ("auto", "unrolled", "gather", "matmul"):
             raise ValueError(f"unknown PolyphaseResampler method {method!r}")
+        self.method = "matmul"  # the form computed, whatever was asked
         L, M, tpp = self.interp, self.decim, self.taps_per_phase
         R = 1 + -(-(tpp - 1) // M) if tpp > 1 else 1
         G = np.zeros((R * M, L), np.float64)

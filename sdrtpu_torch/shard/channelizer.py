@@ -447,6 +447,23 @@ class FftDecimatorChain(StreamOp):
     def out_len(self, n: int) -> int:
         return n // self.ratio
 
+    def chunk_matrix(self, ext: torch.Tensor, P: int) -> torch.Tensor:
+        """Overlap-save chunks (P, nfft), chunk p = ext[p*valid : p*valid
+        + nfft] (zeros past the end of ``ext``): K1's polyphase layout
+        read back in sample order, so it runs `chunk_poly` (the kernel on
+        the card, its plain version on the CPU)."""
+        ct = chunk_poly(ext.to(torch.complex64).contiguous(), self.valid,
+                        self.ratio, self.nif, P)  # (P, R, nif)
+        return ct.transpose(1, 2).reshape(P, self.nfft)
+
+    def poly_spectrum(self, chunks: torch.Tensor) -> torch.Tensor:
+        """Polyphase-split forward transform: (P, nfft) -> (P, R, nif), a
+        length-nif FFT batch over the chunk polyphase components (the
+        outer Cooley-Tukey stage lives in the fold table G)."""
+        P = chunks.shape[0]
+        cp = chunks.reshape(P, self.nif, self.ratio)
+        return torch.fft.fft(cp.transpose(-1, -2))
+
     def __call__(self, state, x):
         n = x.shape[-1]
         assert n % self.block_len == 0, (n, self.block_len)
