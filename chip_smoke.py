@@ -175,17 +175,45 @@ PLL_VCO_ATOL = 1e-4   # pll_scan vs plain loop: unit phasor; carried rad
 DEP_OP_CYCLES, DEP_DIV_CYCLES = 4, 36
 AGC_CHAIN = (8, 1)   # mul add select select | div | min mul compare select
 PLL_CHAIN = (13, 2)  # sub wrap(div+3) mul add max min add add wrap(div+3)
-# Costas (order 4): neg, sinf/cosf (~20), mix (2), error (3), clip (2),
+# Costas (order 4), as PR 10 walks a row whose phase stays bounded (every
+# row of the driven paths): sine and cosine (`sincos_small`: multiply,
+# round by an add and a subtract, three-part reduction, square, four
+# polynomial steps, quadrant and sign selects: 13), mix (2), error
+# (compare, select, subtract: 3), clip (2), freq (multiply, add, clip: 4),
+# phase (add, add: 2), wrap (compare, select, subtract: 3)
+COSTAS_CHAIN = (29, 0)
+# the PR 5 kernel's: neg, sinf/cosf (~20), mix (2), error (3), clip (2),
 # freq (4), phase add add, wrap (div + 3)
-COSTAS_CHAIN = (36, 1)
+COSTAS_CHAIN_PR5 = (36, 1)
+# the error's part of those chains by mode (order 4's is the 3 above):
+# order 2 a product (1); order 8 a select, a product, a difference and a
+# select (5); broken atan2f (~20 and a division), a difference, the wrap
+# (3; in PR 5 a division and 3 more), the first of four minima (6), a
+# product (31 and 1 division; PR 5: 31 and 2).  PR 5 reckoned every
+# order with order 4's chain, and those figures are kept as they were.
+COSTAS_ERROR_OPS = {0: ((1, 0), (3, 0)), 1: ((3, 0), (3, 0)),
+                    2: ((5, 0), (3, 0)), 3: ((31, 1), (31, 2))}
+
+
+def costas_chains(mode: int) -> tuple:
+    """(this design's, PR 5's) reckoned chain of a step in ``mode``."""
+    (ops, divs), (ops5, divs5) = COSTAS_ERROR_OPS[mode]
+    return ((COSTAS_CHAIN[0] - 3 + ops, COSTAS_CHAIN[1] + divs),
+            (COSTAS_CHAIN_PR5[0] - 3 + ops5, COSTAS_CHAIN_PR5[1] + divs5))
 # M&M: phase*P floor clamp (4), shared-memory bank and window reads (~8),
 # mul, pairwise sum (3), error (4), clip (2), freq (4), phase (2), floor,
 # subtract, offset (3), window address (2)
 MM_CHAIN = (38, 0)
-# Viterbi: add-compare-select (shared-memory read ~8, add, compare and
-# select 2, five shuffles ~30, subtract, write and warp barrier ~8), then
-# the traceback (~6)
-VITERBI_CHAIN = (56, 0)
+# Viterbi, PR 10: subtract the maximum, add the branch metric, compare
+# and select (2), key (2), the lane's larger key, redux.sync (~6, as a
+# shuffle), key back to float (2); the four predecessor shuffles and their
+# select (~7) run beside the key, redux and back; the traceback, 32 chunks
+# at once, adds ~(n / 32 + 512) x 6, under one a step at the path's n
+VITERBI_CHAIN = (15, 0)
+# the PR 5 kernel's: add-compare-select (shared-memory read ~8, add,
+# compare and select 2, five shuffles ~30, subtract, write and warp
+# barrier ~8), then the traceback (~6)
+VITERBI_CHAIN_PR5 = (56, 0)
 COSTAS_REL_TOL = 1e-5     # costas_scan vs plain: of the output's peak
 COSTAS_PHASE_ATOL = 1e-4  # costas_scan vs plain: carried phase and freq
 MM_REL_TOL = 1e-5         # mm_scan vs plain: of the block's peak; valid
@@ -340,13 +368,15 @@ def phase_device() -> dict:
 
 
 def phase_build() -> dict:
-    """Every CUDA source with nvcc, then the native IO library with g++
-    (the live path's pump: it must be there, and built before the live
-    session, whose first connection would otherwise wait for g++)."""
+    """Every CUDA source with nvcc, and the probe builds of the two scan
+    sources the kernels phase probes (`probe_and_identities`), all
+    started together; then the native IO library with g++ (the live
+    path's pump: it must be there, and built before the live session,
+    whose first connection would otherwise wait for g++)."""
     from sdrtpu_torch import _build, native
 
     t0 = time.perf_counter()
-    report = _build.build_all()
+    report = _build.build_all(probes=("sync_loops", "viterbi"))
     log(f"build: {time.perf_counter() - t0:.2f} s")
     for name, r in report.items():
         log(f"  {name}: {r['seconds']:.2f} s cached={r['cached']}\n{r['log']}")
@@ -1490,38 +1520,72 @@ def bpsk_real(rng, nsym: int, sps: float) -> np.ndarray:
     return (x + 0.05 * rng.standard_normal(len(x))).astype(np.float32)
 
 
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal to the bit (signed zeros too), where a NaN equals any NaN:
+    the card's arithmetic returns its canonical NaN where PyTorch may
+    keep another's payload."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.is_complex():
+        a, b = torch.view_as_real(a), torch.view_as_real(b)
+    if a.is_floating_point():
+        na, nb = torch.isnan(a), torch.isnan(b)
+        if not torch.equal(na, nb):
+            return False
+        a, b = (a.masked_fill(na, 0).view(torch.int32),
+                b.masked_fill(nb, 0).view(torch.int32))
+    return torch.equal(a, b)
+
+
+def finite_max(t: torch.Tensor) -> float:
+    """The largest element of ``t``; 0 if it has none."""
+    return t.max().item() if t.numel() else 0.0
+
+
 def held(name: str, got, want, where) -> dict:
     """Hold a sync kernel's results ``got`` against its plain version's
     ``want`` (tuples as the wrappers return them, on any device):
     costas_scan within COSTAS_REL_TOL of the output's peak and
-    COSTAS_PHASE_ATOL on the carried phase and frequency; mm_scan with
-    equal valid slots and carried offsets, symbols within MM_REL_TOL of
-    the peak; viterbi_decode with equal bits and metrics.  Returns
-    max_abs_err (and the carries' for costas_scan) and whether all is
-    bit-equal; raises on a disagreement, naming ``where``."""
+    COSTAS_PHASE_ATOL on the carried phase and frequency, NaN where the
+    plain version has NaN and nowhere else; mm_scan with equal valid
+    slots and carried offsets, symbols within MM_REL_TOL of the peak;
+    viterbi_decode with bits and metrics equal to the bit.  Returns
+    max_abs_err (and the carries' for costas_scan; both over the values
+    that are not NaN) and whether all is bit-equal (`same_bits`); raises
+    on a disagreement, naming ``where``."""
     from sdrtpu_torch.kernels import loops
 
     got, want = [g.cpu() for g in got], [w.cpu() for w in want]
-    out = {"bit_equal": all(torch.equal(g, w) for g, w in zip(got, want))}
+    out = {"bit_equal": all(same_bits(g, w) for g, w in zip(got, want))}
     if name == "viterbi_decode":
         ok = out["bit_equal"]
         out["max_abs_err"] = 0.0 if ok else float("inf")
         detail = f"{int((got[0] != want[0]).sum())} bits differ"
+    elif name == "costas_scan":
+        nan = torch.isnan(want[0])
+        same_nan = (torch.equal(torch.isnan(got[0]), nan)
+                    and torch.equal(torch.isnan(got[1]), torch.isnan(want[1]))
+                    and torch.equal(torch.isnan(got[2]), torch.isnan(want[2])))
+        err = out["max_abs_err"] = (
+            finite_max((got[0] - want[0]).abs()[~nan]) if same_nan
+            else float("inf"))
+        peak = finite_max(want[0].abs()[~nan])
+        carry = out["carry_abs_err"] = max(
+            torch.nan_to_num(loops._wrap_pi(got[1] - want[1]).abs()).max()
+            .item(), torch.nan_to_num((got[2] - want[2]).abs()).max().item())
+        ok = (same_nan and err <= COSTAS_REL_TOL * peak
+              and carry <= COSTAS_PHASE_ATOL)
+        out["nan_outputs"] = int(nan.sum())
+        detail = (f"max_abs_err {err} (peak {peak}), carry err {carry}, "
+                  f"NaN where the plain version has NaN: {same_nan}")
     else:
         err = out["max_abs_err"] = (got[0] - want[0]).abs().max().item()
         peak = want[0].abs().max().item()
-        detail = f"max_abs_err {err} (peak {peak})"
-        if name == "costas_scan":
-            carry = out["carry_abs_err"] = max(
-                loops._wrap_pi(got[1] - want[1]).abs().max().item(),
-                (got[2] - want[2]).abs().max().item())
-            ok = err <= COSTAS_REL_TOL * peak and carry <= COSTAS_PHASE_ATOL
-            detail += f", carry err {carry}"
-        else:
-            ok = (torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
-                  and err <= MM_REL_TOL * peak)
-            detail += (f", valid {int(got[1].sum())} vs {int(want[1].sum())}"
-                       f", offset {got[2].tolist()} vs {want[2].tolist()}")
+        ok = (torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+              and err <= MM_REL_TOL * peak)
+        detail = (f"max_abs_err {err} (peak {peak}), valid "
+                  f"{int(got[1].sum())} vs {int(want[1].sum())}, offset "
+                  f"{got[2].tolist()} vs {want[2].tolist()}")
     if not ok:
         raise AssertionError(f"{name} disagrees with its plain version at "
                              f"{where}: {detail}")
@@ -1575,6 +1639,150 @@ def hold_recorded(name: str, calls, where: str) -> dict:
             "bit_equal": all(c["bit_equal"] for c in checks)}
 
 
+def reckoned(steps: int, chain, chain_pr5) -> str:
+    """The reckoned serial chain of this design and of the PR 5 kernel's,
+    for the log (not a measurement)."""
+    return (f"reckoned serial chain {serial_chain_ms(steps, chain):.4f} ms "
+            f"(PR 5 design: {serial_chain_ms(steps, chain_pr5):.4f} ms)")
+
+
+def costas_long_checks(coef) -> list[dict]:
+    """costas_scan order 4 at 150 000 steps and at 150 001 (a ragged
+    last tile), one row a launch, each held by `held` against the plain
+    version run once on the CPU over all the rows (150 000 steps, then
+    one more from its carries): the meteor path's block (a 100 Hz
+    carrier); a carrier of 1/50 of the rate (the phase crosses +-pi every
+    50 steps, ~3 000 one-turn wraps); the same from a phase of 100 rad,
+    past the bounded walk's reach (sincosf and the wrap by the division
+    on every step, ~3 000 of them the division's full path); one NaN
+    sample half way; a phase of -0.0 over 16 zero samples.  Each
+    timed (`device_ms`, `cuda_ms`)."""
+    from sdrtpu_torch.kernels import loops
+
+    rng = np.random.default_rng(29)
+    n = METEOR_BLOCK + 1
+    t = np.arange(n)
+    rows = {"meteor": (100.0 / METEOR_FS, 0.3), "wrap-heavy": (1 / 50, 0.3),
+            "wrap-heavy, general walk": (1 / 50, 100.0), "nan": (100.0 /
+            METEOR_FS, 0.3), "phase -0.0": (100.0 / METEOR_FS, -0.0)}
+    xs, ph0, fr0 = [], [], []
+    for name, (cycles, phase0) in rows.items():
+        x = np.exp(2j * np.pi * (rng.integers(0, 4, n) / 4 + cycles * t))
+        x = x + 0.05 * (rng.standard_normal(n) + 1j * rng.standard_normal(n))
+        if name == "nan":
+            x[n // 2] = np.nan
+        if name == "phase -0.0":
+            x[:16] = 0
+        xs.append(x.astype(np.complex64))
+        ph0.append(phase0)
+        fr0.append(2 * np.pi * cycles if "wrap-heavy" in name else 0.0)
+    x = torch.as_tensor(np.stack(xs))
+    ph0 = torch.tensor(ph0, dtype=torch.float32)
+    fr0 = torch.tensor(fr0, dtype=torch.float32)
+    mode = loops.COSTAS_ORDER4
+    t0 = time.perf_counter()
+    y1, ph1, fr1 = loops.costas_scan_ref(x[:, :-1], ph0, fr0, *coef, mode)
+    y2, ph2, fr2 = loops.costas_scan_ref(x[:, -1:], ph1, fr1, *coef, mode)
+    plain_cpu_ms = (time.perf_counter() - t0) * 1e3
+    want = {n - 1: (y1, ph1, fr1), n: (torch.cat([y1, y2], 1), ph2, fr2)}
+    out = []
+    for r, name in enumerate(rows):
+        for steps in (n - 1, n):
+            args = (x[r:r + 1, :steps].contiguous().cuda(),
+                    ph0[r:r + 1].cuda(), fr0[r:r + 1].cuda(), *coef, mode)
+            got = loops.costas_scan(*args)
+            check = held("costas_scan", got,
+                         [w[r:r + 1] for w in want[steps]],
+                         f"{name}, {steps} steps")
+            row = {"case": name, "shape": [1, steps], **check,
+                   "ms": device_ms(lambda: loops.costas_scan(*args), 5,
+                                   "costas_scan_kernel"),
+                   "event_ms": cuda_ms(lambda: loops.costas_scan(*args), 5)}
+            log(f"costas_scan {name} x {steps}: {row}")
+            out.append(row)
+    log(f"costas_scan long holds: the plain version over {len(rows)} rows "
+        f"x {n} steps on the CPU took {plain_cpu_ms:.0f} ms")
+    return out
+
+
+# rate 1/R codes of each K the grid decodes (the K = 7, R = 2 code is
+# CCSDS's, R = 4 DAB's mother code)
+VITERBI_GRID_POLYS = {
+    3: {2: (0o7, 0o5), 3: (0o5, 0o7, 0o7), 4: (0o5, 0o7, 0o7, 0o5)},
+    5: {2: (0o27, 0o31), 3: (0o25, 0o33, 0o37), 4: (0o25, 0o27, 0o33, 0o37)},
+    7: {2: (0o171, 0o133), 3: (0o133, 0o171, 0o145),
+        4: (0o133, 0o171, 0o145, 0o133)}}
+VITERBI_GRID_STEPS = (1, 1023, 1025, VITERBI_PATH_STEPS)
+
+
+def viterbi_grid_checks() -> dict:
+    """viterbi_decode at K in {3, 5, 7} x R in {2, 3, 4} x n in
+    VITERBI_GRID_STEPS x rows in {1, 2, 4}: four rows of noisy soft
+    symbols a (K, R, n), decoded once by the plain version on the CPU,
+    and the kernel launched on the first 1, 2 and 4 of them, bits and
+    final metrics held equal to the bit (`held`).  Each (K, R) timed at
+    one row of VITERBI_PATH_STEPS."""
+    from sdrtpu_torch.fec import viterbi as tv
+
+    rng = np.random.default_rng(83)
+    held_n, ms = 0, {}
+    for K, codes in VITERBI_GRID_POLYS.items():
+        for R, polys in codes.items():
+            enc = tv.ConvEncoder(K, polys)
+            dec = tv.ViterbiDecoder(K, polys, device="cpu")  # its tables
+            for n in VITERBI_GRID_STEPS:
+                soft = np.stack([enc.encode_to_soft(rng.integers(0, 2, n))
+                                 for _ in range(4)])
+                soft = soft + 0.8 * rng.standard_normal(soft.shape)
+                sym = torch.as_tensor(soft.astype(np.float32).reshape(
+                    4, n, R))
+                want = tv.viterbi_decode_ref(sym, dec.exp_prev, dec.prev,
+                                             dec.prev_bit)
+                for rows in (1, 2, 4):
+                    args = (sym[:rows].cuda(), dec.exp_prev, dec.prev,
+                            dec.prev_bit)
+                    held("viterbi_decode", tv.viterbi_decode(*args),
+                         [w[:rows] for w in want], (K, R, n, rows))
+                    held_n += 1
+                    if n == VITERBI_PATH_STEPS and rows == 1:
+                        ms[f"K={K}, R={R}"] = {
+                            "ms": device_ms(
+                                lambda: tv.viterbi_decode(*args), 5,
+                                "viterbi_kernel"),
+                            "event_ms": cuda_ms(
+                                lambda: tv.viterbi_decode(*args), 5)}
+            log(f"viterbi_decode grid K={K}, R={R}: held at n "
+                f"{VITERBI_GRID_STEPS} x rows (1, 2, 4); "
+                f"{ms[f'K={K}, R={R}']}")
+    return {"held": held_n, "bit_equal": True, "steps": VITERBI_GRID_STEPS,
+            "ms_at_path_steps": ms}
+
+
+def probe_and_identities(costas_args, viterbi_args) -> dict:
+    """The probe builds of costas_scan and viterbi_decode once at the
+    meteor path's shapes (cycles per part of a step, to the log only),
+    and the identities the Costas kernel rests on over every float32
+    (`sdrtpu_torch.probe`; every count of a difference must be 0)."""
+    from sdrtpu_torch import probe
+
+    for name, fn, args in (("costas_scan", probe.costas, costas_args),
+                           ("viterbi_decode", probe.viterbi, viterbi_args)):
+        t = fn(*args)
+        t.pop("outputs")
+        log(f"probe {name} {tuple(args[0].shape)}: cycles a step "
+            f"{t['per_step']}; a tile {t['per_tile']}; once {t['once']}; "
+            f"chunks walked again {t.get('rewalks', '-')}; all parts "
+            f"{t['cycles_per_step']:.1f} a step (marks serialise the "
+            "parts: this ranks them, the kernel's time is ms)")
+    ids = probe.identities()
+    log(f"costas_scan identities over all float32: {ids}")
+    differ = {k: v for k, v in ids.items() if k.endswith("differ") and v}
+    if differ:
+        raise AssertionError(f"costas_scan: an identity the kernel rests "
+                             f"on fails: {differ}")
+    return ids
+
+
 def phase_sync_kernels() -> list[dict]:
     """costas_scan, mm_scan and viterbi_decode against their plain
     PyTorch versions on the card, each timed beside the plain version.
@@ -1588,9 +1796,15 @@ def phase_sync_kernels() -> list[dict]:
     in and float at the RDS path's 500, equal valid counts and offsets,
     symbols within MM_REL_TOL of the block's peak; viterbi_decode K=7
     CCSDS at 16 448 steps of noisy soft symbols and K=5 (0o27, 0o31) at
-    2 000, bits and final metrics equal (``torch.equal``).  Held against
-    the plain version on the CPU, bits and metrics equal: viterbi_decode
-    at the meteor path's longest launch, 88 448 steps, one row and two.
+    2 000, bits and final metrics equal to the bit (`same_bits`).  Held
+    against the plain version on the CPU: viterbi_decode at the meteor
+    path's longest launch, 88 448 steps, one row and two, bits and
+    metrics equal to the bit; costas_scan order 4 at 150 000 and
+    150 001 steps on five rows (`costas_long_checks`: the meteor block,
+    wrap-heavy on both walks, a NaN, a phase of -0.0); viterbi_decode
+    over K x R x n x rows (`viterbi_grid_checks`).  The probe builds run
+    once at the meteor shapes and the Costas identities over every
+    float32 (`probe_and_identities`, the log).
     Timed alone at the meteor path's shapes: costas_scan at 150 000
     steps, mm_scan at 150 000 samples in (the meteor phase holds both,
     and viterbi_decode, on the path's own inputs of a whole block:
@@ -1639,8 +1853,8 @@ def phase_sync_kernels() -> list[dict]:
                 "shape": [rows, n], "mode": mode, "ms": ms,
                 "event_ms": event_ms, "sm_clock_mhz": clocks.summary(),
                 **roofline(16 * rows * n + 16 * rows, 40 * rows * n)}
-            log(f"costas_scan {costas_main}: {t}; reckoned serial chain "
-                f"{serial_chain_ms(n, COSTAS_CHAIN):.4f} ms")
+            log(f"costas_scan {costas_main}: {t}; "
+                f"{reckoned(n, *costas_chains(mode))}")
             continue
         got = loops.costas_scan(*args)
         torch.cuda.synchronize()
@@ -1656,8 +1870,8 @@ def phase_sync_kernels() -> list[dict]:
             "plain_ms": plain_ms,
             # complex64 in and out and the carries; ~40 operations a step
             **roofline(16 * rows * n + 16 * rows, 40 * rows * n)}
-        log(f"costas_scan {(rows, n, mode)}: {t}; reckoned serial chain "
-            f"{serial_chain_ms(n, COSTAS_CHAIN):.4f} ms")
+        log(f"costas_scan {(rows, n, mode)}: {t}; "
+            f"{reckoned(n, *costas_chains(mode))}")
         del x, got, want
 
     mm_rows = {}
@@ -1735,6 +1949,8 @@ def phase_sync_kernels() -> list[dict]:
         sym = torch.as_tensor(soft.astype(np.float32).reshape(rows, n, 2),
                               device="cuda")
         args = (sym, dec.exp_prev, dec.prev, dec.prev_bit)
+        if (rows, n, K) == vit_main:
+            viterbi_path_args = args
         got = tv.viterbi_decode(*args)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1757,9 +1973,9 @@ def phase_sync_kernels() -> list[dict]:
             # select, a share of the max and the subtract: ~10
             **roofline(rows * n * 9 + rows * dec.S * 4,
                        rows * n * dec.S * 10)}
-        log(f"viterbi_decode {(rows, n, K)}: {t}; reckoned serial chain "
-            f"{serial_chain_ms(n, VITERBI_CHAIN):.4f} ms")
-        del sym, got, want
+        log(f"viterbi_decode {(rows, n, K)}: {t}; "
+            f"{reckoned(n, VITERBI_CHAIN, VITERBI_CHAIN_PR5)}")
+        del got, want
 
     def entry(name, source, replaces, main, rows, tol):
         """The path's shape gives ``ms`` and the bound; ``plain_ms`` is
@@ -1784,16 +2000,31 @@ def phase_sync_kernels() -> list[dict]:
             "shape": m["shape"],
             "other_shapes": [v for k, v in rows.items() if k != main]}
 
+    long_rows = costas_long_checks(coef)
+    grid = viterbi_grid_checks()
+    costas_x = psk(1, METEOR_BLOCK, loops.COSTAS_ORDER4)
+    ids = probe_and_identities(
+        (costas_x, torch.full((1,), 0.3, device="cuda"),
+         torch.zeros(1, device="cuda"), *coef, loops.COSTAS_ORDER4),
+        viterbi_path_args)
+    costas = entry("costas_scan", "sdrtpu_torch/csrc/sync_loops.cu",
+                   "sdrtpu/kernels/loops.py:144", costas_main, costas_rows,
+                   {"rel_tol": COSTAS_REL_TOL,
+                    "carry_atol": COSTAS_PHASE_ATOL})
+    costas["long_shapes"] = long_rows
+    costas["max_abs_err"] = max([costas["max_abs_err"]]
+                                + [r["max_abs_err"] for r in long_rows])
+    costas["identities"] = ids
+    viterbi = entry("viterbi_decode", "sdrtpu_torch/csrc/viterbi.cu",
+                    "sdrtpu/fec/viterbi.py:128", vit_main, vit_rows,
+                    {"bits": "equal"})
+    viterbi["grid"] = grid
     return [
-        entry("costas_scan", "sdrtpu_torch/csrc/sync_loops.cu",
-              "sdrtpu/kernels/loops.py:144", costas_main, costas_rows,
-              {"rel_tol": COSTAS_REL_TOL, "carry_atol": COSTAS_PHASE_ATOL}),
+        costas,
         entry("mm_scan", "sdrtpu_torch/csrc/sync_loops.cu",
               "sdrtpu/kernels/clock.py:165", mm_main, mm_rows,
               {"rel_tol": MM_REL_TOL}),
-        entry("viterbi_decode", "sdrtpu_torch/csrc/viterbi.cu",
-              "sdrtpu/fec/viterbi.py:128", vit_main, vit_rows,
-              {"bits": "equal"}),
+        viterbi,
     ]
 
 
@@ -2219,9 +2450,9 @@ def viterbi_row(sym, dec, reps: int = 20) -> dict:
            # select, a share of the max and the subtract
            **roofline(rows * n * (4 * R + 1) + rows * dec.S * 4,
                       rows * n * dec.S * (2 * (2 * R - 1) + 6))}
-    log(f"viterbi_decode {(rows, n, R, dec.K)}: {out}; reckoned serial "
-        f"chain {serial_chain_ms(n, (VITERBI_CHAIN[0] + 4 * (R - 2), 0)):.4f}"
-        " ms")
+    pr5 = (VITERBI_CHAIN_PR5[0] + 4 * (R - 2), 0)  # its metrics on the chain
+    log(f"viterbi_decode {(rows, n, R, dec.K)}: {out}; "
+        f"{reckoned(n, VITERBI_CHAIN, pr5)}")
     return out
 
 
@@ -2249,7 +2480,8 @@ def phase_rates_and_banks() -> dict:
             rows, n, len(polys)), device="cuda")
         vit.append(viterbi_row(sym, dec))
     mm = []
-    for cplx, n, taps, phases in [(True, 3000, 16, 256), (False, 3000, 16, 256),
+    for cplx, n, taps, phases in [(True, 3000, 16, 256),
+                                  (False, 3000, 16, 256),
                                   (True, 3000, 8, 1024),
                                   (False, 2000, 32, 1600)]:
         omega = 25.0 / 12.0 if cplx else 5000.0 / 1187.5
@@ -2288,7 +2520,10 @@ def phase_rates_and_banks() -> dict:
                **roofline(item * (n + taps - 1) + (item + 1) * args[3]
                           + phases * taps * 4,
                           (2 * taps + 30) * n_valid)}
-        log(f"mm_scan wide bank {(cplx, n, taps, phases)}: {row}")
+        # the pairwise sum is log2(taps) adds deep, 3 of them in MM_CHAIN
+        chain = (MM_CHAIN[0] + taps.bit_length() - 4, 0)
+        log(f"mm_scan wide bank {(cplx, n, taps, phases)}: {row}; reckoned "
+            f"serial chain {serial_chain_ms(n_valid, chain):.4f} ms")
         mm.append(row)
         del ext, got, want
     return {"viterbi_decode": vit, "mm_scan": mm}

@@ -7,11 +7,17 @@ C interface, loaded with ctypes:
          -Xcompiler -fPIC -o build/sdrtpu_torch/lib<name>-<hash>.so <name>.cu
 
 Libraries go to ``build/sdrtpu_torch/`` beside the package and are named
-by a hash of their source and flags, so an edited source is rebuilt and
-a stale library is never loaded; nvcc's output (ptxas' register and
-shared-memory report) is kept beside each as ``.log``.  Nothing builds
-at import: the first launch of a kernel builds it, and `build_all`
-builds every source at once (one nvcc process each, started together).
+by a hash of their source, the shared headers (``csrc/*.cuh``) and the
+flags, so an edited source is rebuilt and a stale library is never
+loaded; nvcc's output (ptxas' register and shared-memory report) is kept
+beside each as ``.log``.  Nothing builds at import: the first launch of
+a kernel builds it, and `build_all` builds every source at once (one
+nvcc process each, started together).
+
+A probe build (``probe=True``) adds ``-DSDRTPU_PROBE``: the scan kernels
+then read the SM clock around each part of a step (``csrc/probe.cuh``,
+`sdrtpu_torch.probe`).  It is a library of its own, never the one the
+wrappers load.
 """
 
 from __future__ import annotations
@@ -32,7 +38,9 @@ SOURCES = ("chunk_poly", "mix_decimate", "seq_loops", "sync_loops",
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_LIBS: dict[str, ctypes.CDLL] = {}
+PROBE_DEFINE = "-DSDRTPU_PROBE"
+
+_LIBS: dict[tuple[str, bool], ctypes.CDLL] = {}
 
 
 def _nvcc() -> str:
@@ -45,14 +53,22 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def lib_path(name: str) -> Path:
+def _flags(probe: bool) -> tuple[str, ...]:
+    return NVCC_FLAGS + ((PROBE_DEFINE,) if probe else ())
+
+
+def lib_path(name: str, probe: bool = False) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
+    for header in sorted(CSRC.glob("*.cuh")):
+        src += header.read_bytes()
+    digest = hashlib.sha256(src + " ".join(_flags(probe)).encode()).hexdigest()
+    kind = "-probe" if probe else ""
+    return BUILD_DIR / f"lib{name}{kind}-{digest[:12]}.so"
 
 
-def build_all(names=SOURCES) -> dict[str, dict]:
-    """Compile every missing library in parallel.
+def build_all(names=SOURCES, probes=()) -> dict[str, dict]:
+    """Compile every missing library in parallel: each of ``names``, and
+    the probe build of each of ``probes`` (reported as ``name+probe``).
 
     Returns ``{name: {"seconds": float, "log": str, "cached": bool}}``
     (the log holds ptxas' register and shared-memory report; for a
@@ -63,19 +79,22 @@ def build_all(names=SOURCES) -> dict[str, dict]:
     nvcc = None
     procs = {}
     report = {}
-    for name in names:
-        out = lib_path(name)
+    targets = [(n, False) for n in names] + [(n, True) for n in probes]
+    for name, probe in targets:
+        key = f"{name}+probe" if probe else name
+        out = lib_path(name, probe)
         if out.exists():
             log = out.with_suffix(".log")
-            report[name] = {"seconds": 0.0, "cached": True,
-                            "log": log.read_text() if log.exists() else ""}
+            report[key] = {"seconds": 0.0, "cached": True,
+                           "log": log.read_text() if log.exists() else ""}
             continue
         nvcc = nvcc or _nvcc()
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       tmp, out, time.perf_counter())
+        cmd = [nvcc, *_flags(probe), "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
+        procs[key] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT, text=True),
+                      tmp, out, time.perf_counter())
     failed = []
     for name, (proc, tmp, out, t0) in procs.items():
         log, _ = proc.communicate()
@@ -91,13 +110,14 @@ def build_all(names=SOURCES) -> dict[str, dict]:
     return report
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name``, built on first use."""
-    lib = _LIBS.get(name)
+def load(name: str, probe: bool = False) -> ctypes.CDLL:
+    """The loaded library of kernel ``name`` (its probe build with
+    ``probe``), built on first use."""
+    lib = _LIBS.get((name, probe))
     if lib is None:
-        path = lib_path(name)
+        path = lib_path(name, probe)
         if not path.exists():
-            build_all((name,))
+            build_all(() if probe else (name,), (name,) if probe else ())
         lib = ctypes.CDLL(str(path))
-        _LIBS[name] = lib
+        _LIBS[(name, probe)] = lib
     return lib

@@ -112,8 +112,8 @@ def viterbi_decode_ref(sym, exp_prev, prev, prev_bit):
 
 
 @functools.cache
-def _viterbi_launcher():
-    fn = _build.load("viterbi").viterbi_decode_launch
+def _viterbi_launcher(probe: bool = False):
+    fn = _build.load("viterbi", probe).viterbi_decode_launch
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 2
                    + [ctypes.c_int] * 2 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -129,6 +129,13 @@ def viterbi_decode(sym, exp_prev, prev, prev_bit):
     reference's shift-register trellis, and raises otherwise."""
     if sym.device.type == "cpu":
         return viterbi_decode_ref(sym, exp_prev, prev, prev_bit)
+    return _viterbi_launch(_viterbi_launcher(), sym, exp_prev, prev,
+                           prev_bit)
+
+
+def _viterbi_launch(fn, sym, exp_prev, prev, prev_bit, count=True):
+    """`viterbi_decode` on a CUDA tensor through the C entry ``fn``;
+    ``count``: add its launch to ``viterbi_decode.launches``."""
     if sym.device.type != "cuda":
         raise ValueError(f"viterbi_decode: unsupported device {sym.device}")
     if sym.dtype != torch.float32 or sym.ndim != 3 or not sym.is_contiguous():
@@ -156,14 +163,13 @@ def viterbi_decode(sym, exp_prev, prev, prev_bit):
     e = torch.as_tensor(np.asarray(exp_prev, np.float32),
                         device=sym.device).contiguous()
     choices = torch.empty((rows, n, 2), dtype=torch.int32, device=sym.device)
-    fn = _viterbi_launcher()
     with torch.cuda.device(sym.device):
         stream = torch.cuda.current_stream(sym.device).cuda_stream
         rc = fn(sym.data_ptr(), e.data_ptr(), choices.data_ptr(),
                 bits.data_ptr(), metrics.data_ptr(), rows, n, K, R, stream)
     if rc != 0:
         raise RuntimeError(f"viterbi_decode: CUDA launch failed (error {rc})")
-    viterbi_decode.launches += 1
+    viterbi_decode.launches += count
     return bits, metrics
 
 

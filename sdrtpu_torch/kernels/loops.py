@@ -234,6 +234,19 @@ COSTAS_ORDER2, COSTAS_ORDER4, COSTAS_ORDER8, COSTAS_BROKEN = range(4)
 BROKEN_PHASES = (0.47439988279190737, 2.1777839908413044,
                  3.8682349942715186, -0.29067248091319986)
 _K8 = _f32(np.sqrt(2.0) - 1.0)
+# The largest float32 T such that for every float32 |v| < T the float32
+# quotient v / 2pi rounds (half to even) to +-0, so that the wrap
+# v - 2pi * round(v / 2pi) is v - 2pi * (+-0) = v + 0: the float32 after
+# float32(pi) (float32(pi) / 2pi is 0.5 exactly, which rounds to 0; the
+# next float32's quotient is 0.5 + 2**-24, which rounds to 1).  The
+# `costas_scan` kernel wraps its phase by the division only from T on
+# (tests/test_torch_scan_exactness.py checks T exhaustively).
+COSTAS_WRAP_FAST = float(np.nextafter(np.float32(np.pi), np.float32(np.inf)))
+# The float32 where that quotient first rounds to 2 (v / 2pi = 1.5
+# exactly): below it in magnitude the wrap is v - 2pi * k with k in
+# {-1, +-0, 1}, which the kernel takes from two compares, without the
+# division, where every |phase + freq + alpha * err| stays below it.
+COSTAS_WRAP_TURN = float(np.float32(3.0) * np.float32(np.pi))
 
 
 def _sign(t: torch.Tensor) -> torch.Tensor:
@@ -286,11 +299,11 @@ def costas_scan_ref(x, phase0, freq0, alpha, beta, fmin, fmax, mode):
 
 
 @functools.cache
-def _costas_launcher():
-    fn = _build.load("sync_loops").costas_scan_launch
+def _costas_launcher(probe: bool = False):
+    fn = _build.load("sync_loops", probe).costas_scan_launch
     fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 2
                    + [ctypes.c_float] * 4 + [ctypes.c_int]
-                   + [ctypes.c_float] * 4 + [ctypes.c_void_p])
+                   + [ctypes.c_float] * 6 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -306,6 +319,14 @@ def costas_scan(x, phase0, freq0, alpha, beta, fmin, fmax, mode):
     if x.device.type == "cpu":
         return costas_scan_ref(x, phase0, freq0, alpha, beta, fmin, fmax,
                                mode)
+    return _costas_launch(_costas_launcher(), x, phase0, freq0, alpha, beta,
+                          fmin, fmax, mode)
+
+
+def _costas_launch(fn, x, phase0, freq0, alpha, beta, fmin, fmax, mode,
+                   count=True):
+    """`costas_scan` on a CUDA tensor through the C entry ``fn``;
+    ``count``: add its launch to ``costas_scan.launches``."""
     _cuda_args("costas_scan", x, torch.complex64)
     rows, n = x.shape
     if phase0.shape != (rows,) or freq0.shape != (rows,):
@@ -317,16 +338,16 @@ def costas_scan(x, phase0, freq0, alpha, beta, fmin, fmax, mode):
     freq0 = freq0.to(torch.float32).contiguous()
     y = torch.empty_like(x)
     phase, freq = torch.empty_like(phase0), torch.empty_like(freq0)
-    fn = _costas_launcher()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = fn(x.data_ptr(), y.data_ptr(), phase0.data_ptr(),
                 freq0.data_ptr(), phase.data_ptr(), freq.data_ptr(), rows, n,
                 alpha, beta, fmin, fmax, mode,
-                *(_f32(p) for p in BROKEN_PHASES), stream)
+                *(_f32(p) for p in BROKEN_PHASES), COSTAS_WRAP_FAST,
+                COSTAS_WRAP_TURN, stream)
     if rc != 0:
         raise RuntimeError(f"costas_scan: CUDA launch failed (error {rc})")
-    costas_scan.launches += 1
+    costas_scan.launches += count
     return y, phase, freq
 
 

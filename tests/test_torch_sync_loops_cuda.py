@@ -11,7 +11,8 @@ the interpolator taps in the plain loop's order, so they agree with the
 plain loops to the last place except where PyTorch divides by a Python
 scalar (the phase wrap multiplies by the reciprocal) or its sinf/cosf
 differ by an ulp.  `costas_scan`: 1e-5 of the peak on the output and
-1e-4 rad on the carried phase and frequency.  `mm_scan`: equal valid
+1e-4 rad on the carried phase and frequency, NaN where the plain loop
+has NaN and nowhere else.  `mm_scan`: equal valid
 counts, symbols within 1e-5 of the block peak, carried offset equal;
 the same at the wider banks (16 taps x 256 phases, 8 x 1024, 32 x 1600
 above the default 48 KB of shared memory), with the taps summed as the
@@ -31,37 +32,67 @@ def _need_card():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
 
 
-def _psk(rng, rows, n, order):
+def _psk(rng, rows, n, order, cfo=0.004, case="psk"):
     sym = np.exp(2j * np.pi * rng.integers(0, order, (rows, n)) / order)
-    x = sym * np.exp(1j * (0.004 * np.arange(n) + 0.3))
+    x = sym * np.exp(1j * (cfo * np.arange(n) + 0.3))
     x = x + 0.05 * (rng.standard_normal((rows, n))
                     + 1j * rng.standard_normal((rows, n)))
+    if case == "nan":
+        x[:, n // 2] = np.nan
+    if case == "phase -0":
+        x[:, :16] = 0
     return torch.as_tensor(x.astype(np.complex64), device="cuda")
 
 
+# cases past plain PSK: "wrap-heavy" (a carrier of 1/50 of the rate: the
+# phase crosses +-pi every 50 steps), "general walk" (the same from a
+# phase of 100 rad, past the bounded walk's reach: sincosf and the wrap
+# by the division), "nan" (one NaN sample: NaN from there on, in both),
+# "phase -0" (phase0 = -0.0 over 16 zero samples); n = 1025 and 2049
+# leave a ragged last tile of the kernel's 1024
 @pytest.mark.cuda
-@pytest.mark.parametrize("rows,n,mode", [
-    (1, 500, loops.COSTAS_ORDER2), (1, 3000, loops.COSTAS_ORDER4),
-    (1, 3000, loops.COSTAS_BROKEN), (1, 1000, loops.COSTAS_ORDER8),
-    (2, 700, loops.COSTAS_ORDER4), (1, 257, loops.COSTAS_ORDER4)])
-def test_costas_scan_kernel_matches_plain(rows, n, mode):
+@pytest.mark.parametrize("rows,n,mode,case", [
+    (1, 500, loops.COSTAS_ORDER2, "psk"),
+    (1, 3000, loops.COSTAS_ORDER4, "psk"),
+    (1, 3000, loops.COSTAS_BROKEN, "psk"),
+    (1, 1000, loops.COSTAS_ORDER8, "psk"),
+    (2, 700, loops.COSTAS_ORDER4, "psk"),
+    (1, 257, loops.COSTAS_ORDER4, "psk"),
+    (1, 1025, loops.COSTAS_ORDER4, "psk"),
+    (2, 2049, loops.COSTAS_ORDER4, "psk"),
+    (1, 3000, loops.COSTAS_ORDER4, "wrap-heavy"),
+    (1, 3000, loops.COSTAS_ORDER4, "general walk"),
+    (1, 2000, loops.COSTAS_BROKEN, "general walk"),
+    (1, 3000, loops.COSTAS_ORDER4, "nan"),
+    (1, 3000, loops.COSTAS_ORDER4, "phase -0")])
+def test_costas_scan_kernel_matches_plain(rows, n, mode, case):
     _need_card()
     rng = np.random.default_rng(5)
-    x = _psk(rng, rows, n, 8 if mode == loops.COSTAS_ORDER8 else 4)
+    turning = case in ("wrap-heavy", "general walk")
+    cfo = 2 * np.pi / 50 if turning else 0.004
+    x = _psk(rng, rows, n, 8 if mode == loops.COSTAS_ORDER8 else 4, cfo,
+             case)
+    phase0 = {"general walk": 100.0, "phase -0": -0.0}.get(case, 0.2)
     alpha, beta = loops.critically_damped(0.005)
-    args = (x, torch.full((rows,), 0.2, device="cuda"),
-            torch.zeros(rows, device="cuda"), float(np.float32(alpha)),
-            float(np.float32(beta)), float(np.float32(-np.pi)),
-            float(np.float32(np.pi)), mode)
+    args = (x, torch.full((rows,), phase0, device="cuda"),
+            torch.full((rows,), cfo if turning else 0.0, device="cuda"),
+            float(np.float32(alpha)), float(np.float32(beta)),
+            float(np.float32(-np.pi)), float(np.float32(np.pi)), mode)
     before = loops.costas_scan.launches
     y, ph, fr = loops.costas_scan(*args)
     torch.cuda.synchronize()
     assert loops.costas_scan.launches == before + 1
     y_ref, ph_ref, fr_ref = loops.costas_scan_ref(*args)
-    peak = y_ref.abs().max().item()
-    assert (y - y_ref).abs().max().item() <= 1e-5 * peak
-    assert loops._wrap_pi(ph - ph_ref).abs().max().item() <= 1e-4
-    assert (fr - fr_ref).abs().max().item() <= 1e-4
+    # NaN exactly where the plain loop has NaN; the rest within tolerance
+    nan = torch.isnan(y_ref)
+    assert torch.equal(torch.isnan(y), nan)
+    assert torch.equal(torch.isnan(ph), torch.isnan(ph_ref))
+    assert torch.equal(torch.isnan(fr), torch.isnan(fr_ref))
+    peak = y_ref[~nan].abs().max().item()
+    assert (y - y_ref)[~nan].abs().max().item() <= 1e-5 * peak
+    assert torch.nan_to_num(
+        loops._wrap_pi(ph - ph_ref).abs()).max().item() <= 1e-4
+    assert torch.nan_to_num((fr - fr_ref).abs()).max().item() <= 1e-4
 
 
 @pytest.mark.cuda
