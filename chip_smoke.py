@@ -43,21 +43,25 @@ Phases, each fatal:
    (stage 1 in mix_decimate, one launch per block) and the rotator on;
 8. scan kernels: agc_scan and pll_scan against their plain PyTorch loops
    on the card, at the step counts the receiver and the WFM pilot PLL
-   launch and one long shape each, timed beside the plain loop;
+   launch and one long shape each, timed beside the plain loop
+   (agc_scan to the bit, also a row its general walk takes);
 9. receiver path: `IQFrontend` + `Receiver.push`/`flush` off one 10 Msps
    capture with a 65536-bin waterfall at 20 Hz and eight VFOs — three
    wfm stereo (one fft channelizer group, K1), two nfm (a second group),
    am, usb and cw (per-VFO DDCs; agc_scan) — over 32 M samples at
    ``scan_batch`` 1 and 8, with a live retune of a grouped and a per-VFO
-   channel and a demodulator switch am -> nfm -> am in mid stream;
+   channel and a demodulator switch am -> nfm -> am in mid stream; the
+   CPU run's agc_scan calls held on the card to the bit and timed (as
+   on the live, remote and netclients paths);
 10. pll path: `BroadcastFm(pilot_mode="pll", rds_out=True)` over 8 blocks
    of 12 500 samples (pll_scan, one launch per block);
 11. ctcss: an NFM chain with the CTCSS squelch on 50 ms blocks, card
    against CPU, and the squelch op's time per block;
 12. sync kernels: costas_scan, mm_scan and viterbi_decode against their
    plain PyTorch versions, at the RDS path's shapes, a few short ones
-   and the meteor path's longest Viterbi, timed beside the plain
-   versions and at the meteor path's shapes;
+   and the meteor path's longest Viterbi and M&M block (mm_scan to the
+   bit), timed beside the plain versions and at the meteor path's
+   shapes;
 13. meteor path: the Meteor M2 LRPT chain of examples/meteor_lrpt.py at
    the configuration's published parameters — `MeteorDemod` on 16 blocks
    of 1 s at 150 ksps (costas_scan, mm_scan), the ambiguity resolver's
@@ -166,14 +170,17 @@ from sdrtpu_torch import roofline as rooflib  # the card's peaks and bounds
 K2_REL_TOL = 1e-5  # mix_decimate vs plain: max_abs_err / max|plain|
 AUDIO_ATOL = 2e-4  # card vs CPU audio, as tests/test_torch_pipeline.py
 SPEC_DB_ATOL = 0.02  # card vs CPU waterfall bins within 80 dB of the peak
-AGC_GAIN_RTOL = 1e-5  # agc_scan vs plain loop: gain and final average
 PLL_VCO_ATOL = 1e-4   # pll_scan vs plain loop: unit phasor; carried rad
 # One step's dependent chain, for the serial bound of the scan kernels:
 # cycles per dependent float32 operation and per IEEE division (assumed
 # latencies of the SM's FP32 pipe and of the division's reciprocal plus
 # refinement sequence), times the operations on the carry's path.
 DEP_OP_CYCLES, DEP_DIV_CYCLES = 4, 36
-AGC_CHAIN = (8, 1)   # mul add select select | div | min mul compare select
+# AGC, PR 11's threshold walk: mul, add, the ia > amp select, the compare
+# with the sample's threshold, the select of the suffix maximum (the
+# division and the clip test's product are off the chain)
+AGC_CHAIN = (5, 0)
+AGC_CHAIN_PR5 = (8, 1)  # mul add select select | div | min mul compare select
 PLL_CHAIN = (13, 2)  # sub wrap(div+3) mul add max min add add wrap(div+3)
 # Costas (order 4), as PR 10 walks a row whose phase stays bounded (every
 # row of the driven paths): sine and cosine (`sincos_small`: multiply,
@@ -200,10 +207,15 @@ def costas_chains(mode: int) -> tuple:
     (ops, divs), (ops5, divs5) = COSTAS_ERROR_OPS[mode]
     return ((COSTAS_CHAIN[0] - 3 + ops, COSTAS_CHAIN[1] + divs),
             (COSTAS_CHAIN_PR5[0] - 3 + ops5, COSTAS_CHAIN_PR5[1] + divs5))
-# M&M: phase*P floor clamp (4), shared-memory bank and window reads (~8),
-# mul, pairwise sum (3), error (4), clip (2), freq (4), phase (2), floor,
-# subtract, offset (3), window address (2)
-MM_CHAIN = (38, 0)
+# M&M, PR 11's batched step: the next bank row from nphase (multiply,
+# cvt.rmi, subtract, address: 4), the shared-memory bank read (~8), mul,
+# pairwise sum (3), error (out - p2, mul, add, subtract: 4; the p1 product
+# taken for both signs beforehand), clip (2), freq (4), phase (2)
+MM_CHAIN = (28, 0)
+# the PR 5 kernel's: phase*P floor clamp (4), shared-memory bank and window
+# reads (~8), mul, pairwise sum (3), error (4), clip (2), freq (4), phase
+# (2), floor, subtract, offset (3), window address (2)
+MM_CHAIN_PR5 = (38, 0)
 # Viterbi, PR 10: subtract the maximum, add the branch metric, compare
 # and select (2), key (2), the lane's larger key, redux.sync (~6, as a
 # shuffle), key back to float (2); the four predecessor shuffles and their
@@ -216,8 +228,6 @@ VITERBI_CHAIN = (15, 0)
 VITERBI_CHAIN_PR5 = (56, 0)
 COSTAS_REL_TOL = 1e-5     # costas_scan vs plain: of the output's peak
 COSTAS_PHASE_ATOL = 1e-4  # costas_scan vs plain: carried phase and freq
-MM_REL_TOL = 1e-5         # mm_scan vs plain: of the block's peak; valid
-                          # counts and carried offsets equal
 # MeteorDemod on the card vs the port on the CPU (the thresholds of
 # tests/test_oracle_parity.py:386-393)
 METEOR_SYM_ATOL, METEOR_CLOSE_SHARE, METEOR_BYTE_SHARE = 2e-2, 0.995, 0.99
@@ -368,15 +378,16 @@ def phase_device() -> dict:
 
 
 def phase_build() -> dict:
-    """Every CUDA source with nvcc, and the probe builds of the two scan
-    sources the kernels phase probes (`probe_and_identities`), all
+    """Every CUDA source with nvcc, and the probe builds of the three scan
+    sources the kernels phase probes (`probe_and_identities`, the AGC in
+    `phase_seq_loops`), all
     started together; then the native IO library with g++ (the live
     path's pump: it must be there, and built before the live session,
     whose first connection would otherwise wait for g++)."""
     from sdrtpu_torch import _build, native
 
     t0 = time.perf_counter()
-    report = _build.build_all(probes=("sync_loops", "viterbi"))
+    report = _build.build_all(probes=("sync_loops", "viterbi", "seq_loops"))
     log(f"build: {time.perf_counter() - t0:.2f} s")
     for name, r in report.items():
         log(f"  {name}: {r['seconds']:.2f} s cached={r['cached']}\n{r['log']}")
@@ -933,66 +944,94 @@ def serial_chain_ms(steps: int, chain) -> float:
     return steps * cycles / hz * 1e3
 
 
+# the AGC of the receiver's am chain at 15 kHz (attack 50 Hz, decay 5 Hz,
+# set point 1, max gain 1e7, max output 10) as agc_scan's coefficients
+AGC_COEF = tuple(float(v) for v in (
+    np.float32(1) - np.float32(50.0 / 15000.0), np.float32(50.0 / 15000.0),
+    np.float32(1) - np.float32(5.0 / 15000.0), np.float32(5.0 / 15000.0),
+    1.0, 1e7, 10.0))
+
+
+def agc_row(rng, rows: int, n: int, cplx: bool) -> tuple:
+    """agc_scan's |x| and suffix maximum on the card for noise of 1e-3
+    (complex with ``cplx``), four silent samples first (the average stays
+    0) and a burst of three 3e4 times as loud half way (it trips the
+    clipping look-ahead)."""
+    x = 1e-3 * rng.standard_normal((rows, n))
+    if cplx:
+        x = x + 1e-3j * rng.standard_normal((rows, n))
+    x[:, :4] = 0.0
+    x[:, n // 2:n // 2 + 3] *= 3e4
+    x = torch.as_tensor(x.astype(np.complex64 if cplx else np.float32),
+                        device="cuda")
+    in_amp = x.abs().float().contiguous()
+    smax = in_amp.flip(-1).cummax(-1).values.flip(-1).contiguous()
+    return in_amp, smax
+
+
 def phase_seq_loops() -> list[dict]:
     """agc_scan and pll_scan against their plain loops on the card.
 
     AGC shapes: 750 / 1200 / 150 steps (AM, SSB, CW IF blocks of 50 ms),
     3000 / 4800 / 600 (the receiver path's 200 ms blocks), real and
     complex input, one and five rows, the average starting at 0, a burst
-    that trips the clipping look-ahead, and one long shape.  PLL: 12 500
-    steps on a noisy 19 kHz pilot (the pll path's block) and one long
-    shape.  ``ms`` is device time per launch (profiler), ``plain_ms`` the
-    plain loop's wall time, taken once.  ``bound_ms`` is the contract's
-    bytes-or-operations bound.  What really bounds a scan is its serial
-    chain; `serial_chain_ms` reckons it from assumed latencies, so it
-    goes to the log only and not into the measured line."""
+    that trips the clipping look-ahead, and one long shape, each bit-equal
+    to the plain loop (`same_bits`); and 4 800 steps from an average of
+    -0.0, outside the threshold walk's domain: the kernel's general walk,
+    bit-equal too.  The probe build runs once at 4 800 steps (cycles per
+    part, to the log).  PLL: 12 500 steps on a noisy 19 kHz pilot (the
+    pll path's block) and one long shape.  ``ms`` is device time per
+    launch (profiler), ``plain_ms`` the plain loop's wall time, taken
+    once.  ``bound_ms`` is the contract's bytes-or-operations bound.  What
+    really bounds a scan is its serial chain; `serial_chain_ms` reckons it
+    from assumed latencies, for the log only (AGC: this design's and the
+    PR 5 kernel's)."""
+    from sdrtpu_torch import probe
     from sdrtpu_torch.kernels import loops
 
     rng = np.random.default_rng(7)
-    fs_if = 15000.0
-    atk, dcy = np.float32(50.0 / fs_if), np.float32(5.0 / fs_if)
-    coef = (float(np.float32(1) - atk), float(atk),
-            float(np.float32(1) - dcy), float(dcy), 1.0, 1e7, 10.0)
     agc_rows = {}
-    agc_main = (1, 4800, False)  # the receiver's usb launch
-    for rows, n, cplx in [(1, 750, False), (1, 1200, False), (1, 150, False),
-                          (1, 750, True), (5, 1200, True), (1, 3000, False),
-                          agc_main, (1, 600, False), (2, 24000, False)]:
-        x = 1e-3 * rng.standard_normal((rows, n))
-        if cplx:
-            x = x + 1e-3j * rng.standard_normal((rows, n))
-        x[:, :4] = 0.0
-        x[:, n // 2:n // 2 + 3] *= 3e4
-        x = torch.as_tensor(x.astype(np.complex64 if cplx else np.float32),
-                            device="cuda")
-        in_amp = x.abs().float().contiguous()
-        smax = in_amp.flip(-1).cummax(-1).values.flip(-1).contiguous()
-        amp0 = torch.zeros(rows, device="cuda")
-        args = (in_amp, smax, amp0, *coef)
+    agc_main = (1, 4800, False, "threshold")  # the receiver's usb launch
+    for rows, n, cplx, walk in [
+            (1, 750, False, "threshold"), (1, 1200, False, "threshold"),
+            (1, 150, False, "threshold"), (1, 750, True, "threshold"),
+            (5, 1200, True, "threshold"), (1, 3000, False, "threshold"),
+            agc_main, (1, 600, False, "threshold"),
+            (2, 24000, False, "threshold"), (1, 4800, False, "general")]:
+        in_amp, smax = agc_row(rng, rows, n, cplx)
+        amp0 = torch.full((rows,), -0.0 if walk == "general" else 0.0,
+                          device="cuda")
+        args = (in_amp, smax, amp0, *AGC_COEF)
+        if (rows, n, cplx, walk) == agc_main:
+            agc_main_args = args
         g, amp = loops.agc_scan(*args)
         torch.cuda.synchronize()
         plain_ms = wall_ms(lambda: loops.agc_scan_ref(*args))
         g_ref, amp_ref = loops.agc_scan_ref(*args)
-        rel = ((g - g_ref).abs() / g_ref.abs()).max().item()
-        rel_amp = ((amp - amp_ref).abs() / amp_ref.abs()).max().item()
+        same = same_bits(g, g_ref) and same_bits(amp, amp_ref)
         clipped = int((g_ref[:, 1:] < 0.5 * g_ref[:, :-1]).sum().item())
-        if not (max(rel, rel_amp) <= AGC_GAIN_RTOL
-                and bool(torch.isfinite(g).all()) and clipped >= rows):
+        if not (same and bool(torch.isfinite(g).all()) and clipped >= rows):
             raise AssertionError(
-                f"agc_scan disagrees at {(rows, n, cplx)}: gain rel err "
-                f"{rel}, average rel err {rel_amp}, look-ahead hits {clipped}")
-        agc_rows[(rows, n, cplx)] = t = {
-            "shape": [rows, n], "complex_input": cplx,
-            "max_rel_err": max(rel, rel_amp),
-            "max_abs_err": (g - g_ref).abs().max().item(),
+                f"agc_scan disagrees at {(rows, n, cplx, walk)}: bit-equal "
+                f"{same}, max abs err {(g - g_ref).abs().max().item()}, "
+                f"look-ahead hits {clipped}")
+        agc_rows[(rows, n, cplx, walk)] = t = {
+            "shape": [rows, n], "complex_input": cplx, "walk": walk,
+            "bit_equal": same, "max_abs_err": 0.0,
             "ms": device_ms(lambda: loops.agc_scan(*args), 20,
                             "agc_scan_kernel"),
             "plain_ms": plain_ms,
             # |x|, suffix max and gain per step, the average in and out;
             # ~12 float32 operations per step
             **roofline(4 * (3 * rows * n + 2 * rows), 12 * rows * n)}
-        log(f"agc_scan {(rows, n, cplx)}: {t}; reckoned serial chain "
-            f"{serial_chain_ms(n, AGC_CHAIN):.4f} ms")
+        log(f"agc_scan {(rows, n, cplx, walk)}: {t}; "
+            f"{reckoned(n, AGC_CHAIN, AGC_CHAIN_PR5)}")
+    t = probe.agc(*agc_main_args)
+    t.pop("outputs")
+    log(f"probe agc_scan {tuple(agc_main_args[0].shape)}: cycles a step "
+        f"{t['per_step']}; a tile {t['per_tile']}; once {t['once']}; all "
+        f"parts {t['cycles_per_step']:.1f} a step (marks serialise the "
+        "parts: this ranks them, the kernel's time is ms)")
 
     fs = 250000.0
     w = lambda hz: float(np.float32(2 * np.pi * hz / fs))
@@ -1042,15 +1081,17 @@ def phase_seq_loops() -> list[dict]:
             # no Pallas kernel: the reference's lax.scan of this loop
             "replaces": replaces,
             "launches": None,  # filled in from its path's run
-            "max_abs_err": m["max_abs_err"], tol_key: tol,
+            "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
+            tol_key: tol,
             "ms": m["ms"], "plain_ms": m["plain_ms"],
             "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
             "library_ms": None,  # no PyTorch call computes this recurrence
             "shape": m["shape"],
             "other_shapes": [v for k, v in rows.items() if k != main]}
 
-    return [entry("agc_scan", "sdrtpu/kernels/loops.py:185", agc_main,
-                  agc_rows, "gain_rtol", AGC_GAIN_RTOL),
+    agc = entry("agc_scan", "sdrtpu/kernels/loops.py:185", agc_main,
+                agc_rows, "bits", "equal")
+    return [agc,
             entry("pll_scan", "sdrtpu/kernels/loops.py:79", pll_main,
                   pll_rows, "vco_atol", PLL_VCO_ATOL)]
 
@@ -1276,11 +1317,18 @@ def phase_receiver(card: str, rx_plans: dict,
 
     # the same port on the CPU over the first blocks (before any event)
     cpu_rx, cpu_audio, cpu_spec = build_receiver("cpu")
-    t0 = time.perf_counter()
-    for _ in range(RX_CPU_BLOCKS):
-        cpu_rx.push(x)
-    cpu_rx.flush()
-    cpu_s = time.perf_counter() - t0
+    with recording("agc_scan") as calls:
+        t0 = time.perf_counter()
+        for _ in range(RX_CPU_BLOCKS):
+            cpu_rx.push(x)
+        cpu_rx.flush()
+        cpu_s = time.perf_counter() - t0
+    # the CPU's plain AGC calls launched again as the kernel, to the bit,
+    # and timed at each of the path's three shapes (am, usb, cw)
+    agc_check = hold_recorded("agc_scan", calls["agc_scan"],
+                              "the receiver path")
+    agc_check["at_path_shapes"] = [at_path_shape("agc_scan", a)
+                                   for a, _ in calls["agc_scan"][:3]]
     errs = rx_audio_vs_cpu("receiver", {n: v[:RX_CPU_BLOCKS]
                                         for n, v in audio.items()}, cpu_audio)
     s_gpu = np.concatenate(spec[:RX_CPU_BLOCKS])
@@ -1365,6 +1413,7 @@ def phase_receiver(card: str, rx_plans: dict,
         "audio_vs_cpu": errs, "audio_vs_cpu_blocks": RX_CPU_BLOCKS,
         "waterfall_vs_cpu_max_abs_db": s_err,
         "cpu_seconds_per_block": cpu_s / RX_CPU_BLOCKS,
+        "kernel_check": agc_check,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
         "card": card,
     }
@@ -1543,25 +1592,21 @@ def finite_max(t: torch.Tensor) -> float:
 
 
 def held(name: str, got, want, where) -> dict:
-    """Hold a sync kernel's results ``got`` against its plain version's
+    """Hold a scan kernel's results ``got`` against its plain version's
     ``want`` (tuples as the wrappers return them, on any device):
     costas_scan within COSTAS_REL_TOL of the output's peak and
     COSTAS_PHASE_ATOL on the carried phase and frequency, NaN where the
-    plain version has NaN and nowhere else; mm_scan with equal valid
-    slots and carried offsets, symbols within MM_REL_TOL of the peak;
-    viterbi_decode with bits and metrics equal to the bit.  Returns
+    plain version has NaN and nowhere else; mm_scan (symbols, valid mask
+    and carries), agc_scan (gains and final average) and viterbi_decode
+    (bits and metrics) equal to the bit (`same_bits`).  Returns
     max_abs_err (and the carries' for costas_scan; both over the values
-    that are not NaN) and whether all is bit-equal (`same_bits`); raises
-    on a disagreement, naming ``where``."""
+    that are not NaN) and whether all is bit-equal; raises on a
+    disagreement, naming ``where``."""
     from sdrtpu_torch.kernels import loops
 
     got, want = [g.cpu() for g in got], [w.cpu() for w in want]
     out = {"bit_equal": all(same_bits(g, w) for g, w in zip(got, want))}
-    if name == "viterbi_decode":
-        ok = out["bit_equal"]
-        out["max_abs_err"] = 0.0 if ok else float("inf")
-        detail = f"{int((got[0] != want[0]).sum())} bits differ"
-    elif name == "costas_scan":
+    if name == "costas_scan":
         nan = torch.isnan(want[0])
         same_nan = (torch.equal(torch.isnan(got[0]), nan)
                     and torch.equal(torch.isnan(got[1]), torch.isnan(want[1]))
@@ -1579,13 +1624,18 @@ def held(name: str, got, want, where) -> dict:
         detail = (f"max_abs_err {err} (peak {peak}), carry err {carry}, "
                   f"NaN where the plain version has NaN: {same_nan}")
     else:
-        err = out["max_abs_err"] = (got[0] - want[0]).abs().max().item()
-        peak = want[0].abs().max().item()
-        ok = (torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
-              and err <= MM_REL_TOL * peak)
-        detail = (f"max_abs_err {err} (peak {peak}), valid "
-                  f"{int(got[1].sum())} vs {int(want[1].sum())}, offset "
-                  f"{got[2].tolist()} vs {want[2].tolist()}")
+        ok = out["bit_equal"]
+        out["max_abs_err"] = 0.0 if ok else float("inf")
+        if name == "viterbi_decode":
+            detail = f"{int((got[0] != want[0]).sum())} bits differ"
+        else:
+            detail = f"elements that differ: " + ", ".join(
+                f"{int((g != w).sum())} of {g.numel()}"
+                for g, w in zip(got, want))
+        if name == "mm_scan":
+            detail += (f"; valid {int(got[1].sum())} vs "
+                       f"{int(want[1].sum())}, offset {got[2].tolist()} vs "
+                       f"{want[2].tolist()}")
     if not ok:
         raise AssertionError(f"{name} disagrees with its plain version at "
                              f"{where}: {detail}")
@@ -1600,7 +1650,8 @@ def recording(*names):
     from sdrtpu_torch.fec import viterbi as tv
     from sdrtpu_torch.kernels import clock, loops
 
-    mods = {"costas_scan": loops, "mm_scan": clock, "viterbi_decode": tv}
+    mods = {"costas_scan": loops, "mm_scan": clock, "viterbi_decode": tv,
+            "agc_scan": loops}
     saved = {name: getattr(mods[name], name) for name in names}
     calls = {name: [] for name in names}
 
@@ -1609,15 +1660,21 @@ def recording(*names):
             out = saved[name](*args)
             calls[name].append((args, out))
             return out
+        # a wrapper counts its launch on the name it is called by: the
+        # recorder's while it is installed, handed on to the wrapper's
+        # own count when it is taken out
+        record.launches = 0
         return record
 
+    recorders = {name: recorder(name) for name in names}
     for name in names:
-        setattr(mods[name], name, recorder(name))
+        setattr(mods[name], name, recorders[name])
     try:
         yield calls
     finally:
         for name in names:
             setattr(mods[name], name, saved[name])
+            saved[name].launches += recorders[name].launches
 
 
 def hold_recorded(name: str, calls, where: str) -> dict:
@@ -1627,9 +1684,14 @@ def hold_recorded(name: str, calls, where: str) -> dict:
     from sdrtpu_torch.kernels import clock, loops
 
     fn = {"costas_scan": loops.costas_scan, "mm_scan": clock.mm_scan,
-          "viterbi_decode": tv.viterbi_decode}[name]
+          "viterbi_decode": tv.viterbi_decode,
+          "agc_scan": loops.agc_scan}[name]
     if not calls:
         raise AssertionError(f"{where}: the CPU run made no {name} call")
+    if any(torch.is_tensor(a) and a.device.type != "cpu"
+           for args, _ in calls for a in args):
+        raise AssertionError(f"{where}: a recorded {name} call ran on the "
+                             "card, not in the CPU run")
     checks = [held(name, fn(*(a.cuda() if torch.is_tensor(a) else a
                               for a in args)), out,
                    f"{where}'s inputs {tuple(args[0].shape)}")
@@ -1637,6 +1699,33 @@ def hold_recorded(name: str, calls, where: str) -> dict:
     return {"shapes": [list(args[0].shape) for args, _ in calls],
             "max_abs_err": max(c["max_abs_err"] for c in checks),
             "bit_equal": all(c["bit_equal"] for c in checks)}
+
+
+def at_path_shape(name: str, args, reps: int = 20) -> dict:
+    """A path's recorded call of mm_scan or agc_scan launched again on
+    the card at its own shape and timed: device ms (profiler, ``reps``
+    launches), the plain version's wall time on the card (once; for
+    mm_scan only where the call emits at most 10 000 symbols), the steps
+    (symbols for mm_scan); the reckoned chain of this design and of the
+    PR 5 kernel goes to the log (`reckoned`)."""
+    from sdrtpu_torch.kernels import clock, loops
+
+    fn, ref = {"mm_scan": (clock.mm_scan, clock.mm_scan_ref),
+               "agc_scan": (loops.agc_scan, loops.agc_scan_ref)}[name]
+    a = tuple(x.cuda() if torch.is_tensor(x) else x for x in args)
+    out = fn(*a)
+    if name == "mm_scan":
+        steps, chains = int(out[1].sum().item()), (MM_CHAIN, MM_CHAIN_PR5)
+    else:
+        steps, chains = a[0].shape[1], (AGC_CHAIN, AGC_CHAIN_PR5)
+    with SmClocks() as clocks:
+        ms = device_ms(lambda: fn(*a), reps, f"{name}_kernel")
+    plain = (wall_ms(lambda: ref(*a)) if name == "agc_scan" or steps <= 10_000
+             else None)
+    row = {"shape": list(a[0].shape), "steps": steps, "ms": ms,
+           "plain_ms": plain, "sm_clock_mhz": clocks.summary()}
+    log(f"{name} at a path's shape: {row}; {reckoned(steps, *chains)}")
+    return row
 
 
 def reckoned(steps: int, chain, chain_pr5) -> str:
@@ -1758,15 +1847,17 @@ def viterbi_grid_checks() -> dict:
             "ms_at_path_steps": ms}
 
 
-def probe_and_identities(costas_args, viterbi_args) -> dict:
-    """The probe builds of costas_scan and viterbi_decode once at the
-    meteor path's shapes (cycles per part of a step, to the log only),
-    and the identities the Costas kernel rests on over every float32
-    (`sdrtpu_torch.probe`; every count of a difference must be 0)."""
+def probe_and_identities(costas_args, viterbi_args, mm_args) -> dict:
+    """The probe builds of costas_scan, viterbi_decode and mm_scan once at
+    the meteor path's shapes (cycles per part of a step, to the log
+    only), and the identities the Costas kernel rests on over every
+    float32 (`sdrtpu_torch.probe`; every count of a difference must be
+    0)."""
     from sdrtpu_torch import probe
 
     for name, fn, args in (("costas_scan", probe.costas, costas_args),
-                           ("viterbi_decode", probe.viterbi, viterbi_args)):
+                           ("viterbi_decode", probe.viterbi, viterbi_args),
+                           ("mm_scan", probe.mm, mm_args)):
         t = fn(*args)
         t.pop("outputs")
         log(f"probe {name} {tuple(args[0].shape)}: cycles a step "
@@ -1793,18 +1884,19 @@ def phase_sync_kernels() -> list[dict]:
     broken-modulation error at 6 000, order 8 at 2 000 and a 2-row batch
     at 2 000, within COSTAS_REL_TOL of the output's peak and
     COSTAS_PHASE_ATOL on the carries; mm_scan complex at 6 000 samples
-    in and float at the RDS path's 500, equal valid counts and offsets,
-    symbols within MM_REL_TOL of the block's peak; viterbi_decode K=7
+    in and float at the RDS path's 500, symbols, mask and carries equal
+    to the bit; viterbi_decode K=7
     CCSDS at 16 448 steps of noisy soft symbols and K=5 (0o27, 0o31) at
     2 000, bits and final metrics equal to the bit (`same_bits`).  Held
     against the plain version on the CPU: viterbi_decode at the meteor
     path's longest launch, 88 448 steps, one row and two, bits and
-    metrics equal to the bit; costas_scan order 4 at 150 000 and
+    metrics equal to the bit; mm_scan at the meteor path's 150 000
+    samples in, equal to the bit; costas_scan order 4 at 150 000 and
     150 001 steps on five rows (`costas_long_checks`: the meteor block,
     wrap-heavy on both walks, a NaN, a phase of -0.0); viterbi_decode
     over K x R x n x rows (`viterbi_grid_checks`).  The probe builds run
-    once at the meteor shapes and the Costas identities over every
-    float32 (`probe_and_identities`, the log).
+    once at the meteor shapes (Costas, Viterbi, M&M) and the Costas
+    identities over every float32 (`probe_and_identities`, the log).
     Timed alone at the meteor path's shapes: costas_scan at 150 000
     steps, mm_scan at 150 000 samples in (the meteor phase holds both,
     and viterbi_decode, on the path's own inputs of a whole block:
@@ -1813,7 +1905,7 @@ def phase_sync_kernels() -> list[dict]:
     launches at the paths' shapes, ``plain_ms`` the plain version's wall
     time on the card, once.  Whether each check was bit-equal goes to
     the log; so does the reckoned serial bound (`serial_chain_ms`),
-    which is not a measurement."""
+    which is not a measurement (this design's and the PR 5 kernel's)."""
     from sdrtpu_torch.fec import viterbi as tv
     from sdrtpu_torch.kernels import clock, loops
     from sdrtpu_torch.kernels.psk import MeteorDemod
@@ -1898,8 +1990,14 @@ def phase_sync_kernels() -> list[dict]:
                 float(np.float32(mm.omega_gain)),
                 float(np.float32(mm.mu_gain)))
         item = 8 if cplx else 4
-        if (cplx, n) == mm_main:  # timed alone
+        if (cplx, n) == mm_main:  # timed alone, held on the CPU
+            mm_main_args = args
             got = clock.mm_scan(*args)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            want = clock.mm_scan_ref(*(a.cpu() if torch.is_tensor(a) else a
+                                       for a in args))
+            plain_cpu_ms = (time.perf_counter() - t0) * 1e3
             n_valid = int(got[1].sum().item())
             with SmClocks() as clocks:
                 ms = device_ms(lambda: clock.mm_scan(*args), 5,
@@ -1907,12 +2005,16 @@ def phase_sync_kernels() -> list[dict]:
                 event_ms = cuda_ms(lambda: clock.mm_scan(*args), 5)
             mm_rows[mm_main] = t = {
                 "shape": [1, n], "complex": cplx, "symbols": n_valid,
-                "slots": args[3], "ms": ms,
-                "event_ms": event_ms, "sm_clock_mhz": clocks.summary(),
+                "slots": args[3],
+                **held("mm_scan", got, want,
+                       f"{(cplx, n)}, plain version on the cpu"),
+                "ms": ms, "event_ms": event_ms,
+                "sm_clock_mhz": clocks.summary(),
+                "plain_cpu_ms": plain_cpu_ms,
                 **roofline(item * (n + 7) + (item + 1) * args[3] + 4096,
                            40 * n_valid)}
-            log(f"mm_scan {mm_main}: {t}; reckoned serial chain "
-                f"{serial_chain_ms(n_valid, MM_CHAIN):.4f} ms")
+            log(f"mm_scan {mm_main}: {t}; "
+                f"{reckoned(n_valid, MM_CHAIN, MM_CHAIN_PR5)}")
             continue
         got = clock.mm_scan(*args)
         torch.cuda.synchronize()
@@ -1931,8 +2033,8 @@ def phase_sync_kernels() -> list[dict]:
             # symbol
             **roofline(item * (n + 7) + (item + 1) * args[3] + 4096,
                        40 * n_valid)}
-        log(f"mm_scan {(cplx, n)}: {t}; reckoned serial chain "
-            f"{serial_chain_ms(n_valid, MM_CHAIN):.4f} ms")
+        log(f"mm_scan {(cplx, n)}: {t}; "
+            f"{reckoned(n_valid, MM_CHAIN, MM_CHAIN_PR5)}")
         del ext, got, want
 
     vit_rows = {}
@@ -2006,7 +2108,7 @@ def phase_sync_kernels() -> list[dict]:
     ids = probe_and_identities(
         (costas_x, torch.full((1,), 0.3, device="cuda"),
          torch.zeros(1, device="cuda"), *coef, loops.COSTAS_ORDER4),
-        viterbi_path_args)
+        viterbi_path_args, mm_main_args)
     costas = entry("costas_scan", "sdrtpu_torch/csrc/sync_loops.cu",
                    "sdrtpu/kernels/loops.py:144", costas_main, costas_rows,
                    {"rel_tol": COSTAS_REL_TOL,
@@ -2019,13 +2121,10 @@ def phase_sync_kernels() -> list[dict]:
                     "sdrtpu/fec/viterbi.py:128", vit_main, vit_rows,
                     {"bits": "equal"})
     viterbi["grid"] = grid
-    return [
-        costas,
-        entry("mm_scan", "sdrtpu_torch/csrc/sync_loops.cu",
-              "sdrtpu/kernels/clock.py:165", mm_main, mm_rows,
-              {"rel_tol": MM_REL_TOL}),
-        viterbi,
-    ]
+    mm = entry("mm_scan", "sdrtpu_torch/csrc/sync_loops.cu",
+               "sdrtpu/kernels/clock.py:165", mm_main, mm_rows,
+               {"bits": "equal"})
+    return [costas, mm, viterbi]
 
 
 def meteor_capture(seed: int):
@@ -2461,7 +2560,7 @@ def phase_rates_and_banks() -> dict:
     wider banks (16 taps x 256 phases, 8 x 1024, 32 x 1600: above the
     default 48 KB of shared memory), each against its plain version on
     the card: bits and metrics equal (Viterbi), valid slots and offsets
-    equal with symbols within MM_REL_TOL of the peak (M&M; `held`).
+    equal, symbols equal to the bit (M&M; `held`).
     Returns the rows for the kernels line."""
     from sdrtpu_torch.fec import viterbi as tv
     from sdrtpu_torch.kernels import clock
@@ -2521,9 +2620,10 @@ def phase_rates_and_banks() -> dict:
                           + phases * taps * 4,
                           (2 * taps + 30) * n_valid)}
         # the pairwise sum is log2(taps) adds deep, 3 of them in MM_CHAIN
-        chain = (MM_CHAIN[0] + taps.bit_length() - 4, 0)
-        log(f"mm_scan wide bank {(cplx, n, taps, phases)}: {row}; reckoned "
-            f"serial chain {serial_chain_ms(n_valid, chain):.4f} ms")
+        extra = taps.bit_length() - 4
+        log(f"mm_scan wide bank {(cplx, n, taps, phases)}: {row}; "
+            + reckoned(n_valid, (MM_CHAIN[0] + extra, 0),
+                       (MM_CHAIN_PR5[0] + extra, 0)))
         mm.append(row)
         del ext, got, want
     return {"viterbi_decode": vit, "mm_scan": mm}
@@ -2865,8 +2965,8 @@ def phase_falcon9(card: str) -> dict:
                 "plain_cpu_ms": cpu_s * 1e3, "sm_clock_mhz": clocks.summary(),
                 **roofline(4 * args[0].shape[1] + 5 * args[3] + 4096,
                            46 * n_valid)}
-    log(f"mm_scan at the falcon9 block: {path_row}; reckoned serial chain "
-        f"{serial_chain_ms(n_valid, MM_CHAIN):.4f} ms")
+    log(f"mm_scan at the falcon9 block: {path_row}; "
+        f"{reckoned(n_valid, MM_CHAIN, MM_CHAIN_PR5)}")
     dec_p = f9.Falcon9Decoder(device="cuda")
     prof, p_wall, busy_us = profiled(lambda: run(dec_p, 0, 2))
     on_path = kernel_ms_per_launch(prof, ("mm_scan_kernel",))
@@ -2938,6 +3038,8 @@ def phase_kg_sstv(card: str) -> dict:
                              f" card {got}, CPU {got_cpu}, sent {payloads}")
     checks = {name: hold_recorded(name, calls[name], "the kg_sstv path")
               for name in ("mm_scan", "viterbi_decode")}
+    checks["mm_scan"]["at_path_shape"] = at_path_shape(
+        "mm_scan", calls["mm_scan"][0][0])
     dec_p = kg.KgSstvDecoder(KG_FS, device="cuda")
     prof, p_wall, busy_us = profiled(
         lambda: [dec_p.process(c) for c in chunks])
@@ -3081,6 +3183,8 @@ def phase_m17(card: str) -> dict:
         checks = {name: hold_recorded(name, calls[name],
                                       f"the m17 path ({preamble})")
                   for name in ("mm_scan", "viterbi_decode")}
+        checks["mm_scan"]["at_path_shape"] = at_path_shape(
+            "mm_scan", calls["mm_scan"][0][0])
         audio = None
         if c2 is not None and preamble == "example":
             pcm = m17.M17Vocoder().vocode([p for t, p in res
@@ -3203,6 +3307,8 @@ def phase_ryfi(card: str) -> dict:
             f"{len(card_first)} and {per_block[RYFI_CPU_BLOCKS - 1]}")
     checks = {name: hold_recorded(name, calls[name], "the ryfi path")
               for name in ("costas_scan", "mm_scan", "viterbi_decode")}
+    checks["mm_scan"]["at_path_shape"] = at_path_shape(
+        "mm_scan", calls["mm_scan"][0][0])
     rx_p = ryfi.RyfiReceiver(RYFI_BAUD, fs, device="cuda")
     prof, p_wall, busy_us = profiled(
         lambda: [rx_p.process(y[b * RYFI_BLOCK:(b + 1) * RYFI_BLOCK])
@@ -3313,6 +3419,7 @@ def phase_paging(card: str) -> dict:
     if msgs_cpu != msgs:
         raise AssertionError(f"paging: CPU decoded {msgs_cpu}, card {msgs}")
     check = hold_recorded("mm_scan", calls["mm_scan"], "the paging path")
+    check["at_path_shape"] = at_path_shape("mm_scan", calls["mm_scan"][0][0])
     prof, p_wall, busy_us = profiled(lambda: receive("cuda"))
 
     flex_msgs = [(0x12345, "HELLO FLEX"), (0x0BEEF, "SDR ON THE CARD")]
@@ -3712,10 +3819,13 @@ def phase_live(card: str, receiver_msps: float) -> dict:
     tones = rx_tone_checks("live", last, retuned=False)
     # the port on the CPU over the first received blocks
     cpu_rx, cpu_audio, _ = build_receiver("cpu", spectrum=False)
-    for b in received:
-        cpu_rx.push(b)
-    cpu_rx.flush()
+    with recording("agc_scan") as calls:
+        for b in received:
+            cpu_rx.push(b)
+        cpu_rx.flush()
     errs = rx_audio_vs_cpu("live", first, cpu_audio)
+    agc_check = hold_recorded("agc_scan", calls["agc_scan"],
+                              "the live path")
     del cpu_rx, cpu_audio, first, last, received
     mark("card vs CPU")
 
@@ -3739,6 +3849,7 @@ def phase_live(card: str, receiver_msps: float) -> dict:
             "kernel_launches": paced_rec["kernel_launches"],
             "paced": paced_rec, "recovered": tones,
             "audio_vs_cpu": errs, "audio_vs_cpu_blocks": RX_CPU_BLOCKS,
+            "kernel_check": agc_check,
             "unpaced": unpaced, "profiled_paced": profiled,
             "cli_selftest": "OK", "rtl_tcp": phase_rtl_tcp(), "card": card}
 
@@ -4196,12 +4307,17 @@ def phase_remote(card: str) -> dict:
                                  f"around the nfm switch: {am_db} dB")
         # the same port on the CPU over the first blocks
         cpu_rx, cpu_audio, _ = build_receiver("cpu", spectrum=False)
-        for x in rx_blocks:
-            cpu_rx.push(x)
-        cpu_rx.flush()
+        with recording("agc_scan") as calls:
+            for x in rx_blocks:
+                cpu_rx.push(x)
+            cpu_rx.flush()
         errs = rx_audio_vs_cpu("remote", {n: v[:RX_CPU_BLOCKS]
                                           for n, v in audio.items()},
                                cpu_audio)
+        agc_check = hold_recorded("agc_scan", calls["agc_scan"],
+                                  "the remote path")
+        agc_check["at_path_shapes"] = [at_path_shape("agc_scan", a)
+                                       for a, _ in calls["agc_scan"][:3]]
         del cpu_rx, cpu_audio, rx_blocks
         cli.close()
 
@@ -4278,6 +4394,7 @@ def phase_remote(card: str) -> dict:
             "recovered_before_retunes": before, "recovered": after,
             "am_tone_db": am_db,
             "audio_vs_cpu": errs, "audio_vs_cpu_blocks": RX_CPU_BLOCKS,
+            "kernel_check": agc_check,
             "second_session": {
                 "zstd": zstd, "blocks": REMOTE_PROFILED_BLOCKS,
                 "wire": wire2, "kernel_launches": launches2,
@@ -4526,7 +4643,21 @@ def phase_netclients(card: str) -> dict:
                 raise AssertionError(f"netclients {kind}: " + "; ".join(
                     problems))
             elapsed = run["t_end"] - run["t_first"]
+            check = None
+            if mode == "am":
+                # the first block's AGC through the same VFO on the CPU,
+                # its plain calls launched again as the kernel and timed
+                cpu_rx = Receiver(IQFrontend(fs, {"v0": VfoConfig(off, mode)},
+                                             spectrum=False, device="cpu"),
+                                  audio_sinks={"v0": lambda a: None})
+                with recording("agc_scan") as calls:
+                    cpu_rx.push(got[:rx.block_len])
+                check = hold_recorded("agc_scan", calls["agc_scan"],
+                                      f"the netclients path ({kind})")
+                check["at_path_shape"] = at_path_shape(
+                    "agc_scan", calls["agc_scan"][0][0])
             out[kind] = {"mode": mode, "samplerate": fs,
+                         "kernel_check": check,
                          "block_len": rx.block_len, "samples": total,
                          "kernel_launches": launches,
                          "recovered_hz": tones[:len(expect)],
@@ -4878,6 +5009,14 @@ def main(argv) -> int:
             k["dab_path"] = {**paths["dab"]["viterbi_at_path_shape"],
                              "path_check": paths["dab"]["kernel_check"]}
         if k["name"] == "mm_scan":
+            k["path_shapes"] = {
+                "kg_sstv": paths["kg_sstv"]["kernel_checks"]["mm_scan"][
+                    "at_path_shape"],
+                "m17": paths["m17"]["kernel_checks"]["mm_scan"][
+                    "at_path_shape"],
+                "ryfi": paths["ryfi"]["kernel_checks"]["mm_scan"][
+                    "at_path_shape"],
+                "paging": paths["paging"]["kernel_check"]["at_path_shape"]}
             k["paging_path_launches"] = paths["paging"]["kernel_launches"][
                 "mm_scan"]
             k["paging_path_check"] = paths["paging"]["kernel_check"]
@@ -4890,9 +5029,17 @@ def main(argv) -> int:
                                      "kernel_check"]}
         if k["name"] == "agc_scan":
             k["launches"] = paths["receiver"]["kernel_launches"]["agc_scan"]
-            for name in ("remote", "netclients"):
+            for name in ("live", "remote", "netclients"):
                 k[f"{name}_path_launches"] = paths[name]["kernel_launches"][
                     "agc_scan"]
+            # the CPU runs' plain AGC calls, launched again as the kernel
+            hermes = paths["netclients"]["hermes"]["kernel_check"]
+            for name, check in (("receiver", paths["receiver"]["kernel_check"]),
+                                ("live", paths["live"]["kernel_check"]),
+                                ("remote", paths["remote"]["kernel_check"]),
+                                ("netclients", hermes)):
+                k[f"{name}_path_check"] = check
+                k["max_abs_err"] = max(k["max_abs_err"], check["max_abs_err"])
         if k["name"] == "pll_scan":
             k["launches"] = paths["pll"]["kernel_launches"]["pll_scan"]
         if k["name"] == "chunk_poly":  # once per fused group and block

@@ -14,22 +14,49 @@
 // latency of one step times the number of steps; a row is a serial chain
 // (the carry of step i feeds step i+1), and rows are few.  The design
 // therefore keeps everything that does not depend on the carry off the
-// chain.  One warp owns one row and walks it in tiles of kTile samples:
+// chain.
 //
-//   1. all 32 lanes load the tile into shared memory (coalesced) and do
-//      the carry-free work in parallel (PLL: atan2f of every sample);
+// pll_scan: one warp owns one row and walks it in tiles of kTile samples:
+//   1. all 32 lanes load the tile into shared memory (coalesced) and take
+//      atan2f of every sample;
 //   2. lane 0 runs the recurrence over the tile out of shared memory,
-//      leaving one float per step (AGC: the gain; PLL: the phase before
-//      the update); it reads kGroup steps' inputs into registers ahead
-//      of those steps, so no step waits for a shared-memory load;
-//   3. all lanes finish the outputs in parallel (PLL: cosf/sinf of the
-//      phases) and store them coalesced.
+//      leaving the phase before each update; it reads kGroup steps'
+//      inputs into registers ahead of those steps;
+//   3. all lanes take cosf/sinf of the phases and store them coalesced.
+//
+// agc_scan: one block of kAgcWarps warps owns one row.  The step's gain
+// needs an IEEE division, and whether the step clips (ia * gain >
+// max_out, the average then jumping to the suffix maximum) needs that
+// gain; neither need be on the chain:
+//   - the gain after the step is ia != 0 ? min(set_point / a_i, max_gain)
+//     : 1 in both branches, a_i the average after the step, so lane 0
+//     records a_i and the other warps form the gains behind it;
+//   - the clip test RN(ia * min(RN(set_point / a), max_gain)) > max_out
+//     is monotone in a, so for each sample one threshold A' (`agc_clip_
+//     threshold`, found by a search over the float32 bit patterns from
+//     an estimate) gives it as a < A' exactly (-inf: never clips).
+// Lane 0's step is then two products (rounded each), an add, the
+// ia > amp select, the compare with A' and the select of the suffix
+// maximum (a silent sample takes the decay branch with coefficient 1
+// and addend +0, which gives the average back).  Warps 1.. copy tile
+// k+2 in by cp.async, compute tile k+1's products and thresholds and
+// tile k-1's gains while lane 0 walks tile k, each thread on the same
+// samples of every tile (no barrier among them); one block barrier a
+// tile.  Lane 0 reads kAgcGroup steps' inputs ahead of those steps.
+// The identities hold in a domain decided once a row (set_point
+// in (0, FLT_MAX], max_out >= 0, the four coefficients in [+0, +inf],
+// amp0 and every suffix maximum neither negative nor -0, every |x| not
+// negative: the average then stays in [+0, +inf] or NaN), read by every
+// thread while the helpers copy in and prepare the first tile; any other
+// row walks today's step (`agc_step`: the division and the clip test on
+// lane 0, warp 0 alone).  Both walks are the kernel.
 //
 // Arithmetic is that of the reference, step for step, in float32 with
 // every product and sum rounded on its own (__fmul_rn/__fadd_rn: no
 // fused multiply-add, so the plain PyTorch loops give the same bits),
 // IEEE division, rintf (half to even, as jnp.round) in the phase wrap,
-// and no fast-math intrinsics.
+// and no fast-math intrinsics.  A probe build (-DSDRTPU_PROBE, probe.cuh)
+// reads the SM clock around the parts of an AGC step.
 //
 // The C entry points take raw pointers and the stream, launch on that
 // stream, neither synchronise nor allocate, and return
@@ -37,25 +64,69 @@
 
 #include <cuda_runtime.h>
 
+#include <cfloat>
+#include <cstring>
+
+#include "probe.cuh"
+
 namespace {
 
 constexpr int kTile = 256;
 constexpr int kWarp = 32;
 constexpr int kGroup = 8;  // steps whose inputs lane 0 reads ahead
 constexpr float kTwoPi = 6.28318530717958647692f;
+constexpr unsigned kInfBits = 0x7f800000u;
 
 // minimum that lets a NaN through, as jnp.minimum and torch.minimum do
 __device__ __forceinline__ float min_nan(float a, float b) {
   return (a < b || a != a) ? a : b;
 }
 
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// -- agc_scan -----------------------------------------------------------
+
+constexpr int kAgcWarps = 4;  // warp 0 walks, the others prepare and finish
+constexpr int kAgcGroup = 16;  // steps whose inputs lane 0 reads ahead
+constexpr int kAgcHelpers = (kAgcWarps - 1) * kWarp;
+
 struct AgcParams {
   float one_m_atk, atk, one_m_dcy, dcy, set_point, max_gain, max_out;
+  int in_domain;  // the parameters lie in the threshold walk's domain
+  unsigned long long* probe_out;  // a probe build's counters, else null
 };
 
-// One AGC step: updates the running average, returns the gain.
+// the parts of a step, of a tile and of the launch that the probe build
+// times (the general walk: average, divide, clip, tile load and store;
+// the threshold walk: average, clip and lane 0's wait at the tile's
+// barrier; once: the domain test, with the first tile's preparation)
+enum AgcPart { kAAverage, kADivide, kAClip, kATileLoad, kATileStore,
+               kATileWait, kADomain, kASteps, kATiles, kAgcParts };
+#ifdef SDRTPU_PROBE
+using AgcProbe = Probe<kAgcParts>;
+#else
+using AgcProbe = NoProbe;
+#endif
+
+// One AGC step as the reference takes it: updates the running average,
+// returns the gain.  The general walk's step.
+template <typename P>
 __device__ __forceinline__ float agc_step(float& amp, float ia, float sm,
-                                          const AgcParams& p) {
+                                          const AgcParams& p, P& pr) {
   const float up = __fadd_rn(__fmul_rn(amp, p.one_m_atk),
                              __fmul_rn(ia, p.atk));
   const float dn = __fadd_rn(__fmul_rn(amp, p.one_m_dcy),
@@ -64,34 +135,234 @@ __device__ __forceinline__ float agc_step(float& amp, float ia, float sm,
   // a silent sample holds the average and passes at gain 1, so
   // set_point/amp is never formed from amp == 0
   a = (ia != 0.f) ? a : amp;
+  pr.mark(kAAverage, a);
   float g = (ia != 0.f) ? min_nan(__fdiv_rn(p.set_point, a), p.max_gain)
                         : 1.f;
+  pr.mark(kADivide, g);
   if (__fmul_rn(ia, g) > p.max_out) {
     // would clip: jump to the largest amplitude still to come
     a = sm;
     g = min_nan(__fdiv_rn(p.set_point, a), p.max_gain);
   }
+  pr.mark(kAClip, g);
   amp = a;
   return g;
 }
 
-__global__ void agc_scan_kernel(const float* __restrict__ in_amp,
-                                const float* __restrict__ suffix_max,
-                                float* __restrict__ gain,
-                                const float* __restrict__ amp_in,
-                                float* __restrict__ amp_out, long long n,
-                                AgcParams p) {
+// The first u in (f, t] with pred(u), for a pred monotone in u (false up
+// to the answer, true from it on) with pred(f) false and pred(t) true:
+// from ``guess``, steps of 1, 2, 4, ... towards the answer, then halving.
+template <typename Pred>
+__device__ __forceinline__ unsigned first_true(unsigned f, unsigned t,
+                                               unsigned guess, Pred pred) {
+  if (guess > f && guess < t) {
+    if (pred(guess)) {
+      t = guess;
+      for (unsigned d = 1; t - f > d; d <<= 1) {
+        if (!pred(t - d)) {
+          f = t - d;
+          break;
+        }
+        t -= d;
+      }
+    } else {
+      f = guess;
+      for (unsigned d = 1; t - f > d; d <<= 1) {
+        if (pred(f + d)) {
+          t = f + d;
+          break;
+        }
+        f += d;
+      }
+    }
+  }
+  while (t - f > 1) {
+    const unsigned m = f + (t - f) / 2;
+    if (pred(m))
+      t = m;
+    else
+      f = m;
+  }
+  return t;
+}
+
+// The clip threshold of a sample: the step clips exactly where the
+// average before the clip test, a (in [+0, +inf] or NaN), is below it.
+// For ia in (0, FLT_MAX] and a finite max_out, G is the largest float32
+// g with RN(ia * g) <= max_out (for ia = +inf, +0: the product exceeds
+// max_out exactly where g > +0), so the step clips where min(q,
+// max_gain) > G, q = RN(set_point / a); if max_gain > G that is q > G,
+// i.e. a < A, the smallest a in [+0, +inf] with RN(set_point / a) <= G.
+// Otherwise (ia 0, -0 or NaN, max_out inf, max_gain <= G or NaN) it
+// never clips: -inf.
+__device__ __forceinline__ float agc_clip_threshold(float ia,
+                                                    const AgcParams& p) {
+  const float inf = __int_as_float(kInfBits);
+  if (!(ia > 0.f && p.max_out < inf)) return -inf;
+  const float mo = p.max_out, sp = p.set_point;
+  float G = 0.f;
+  if (ia < inf) {
+    const unsigned guess = __float_as_uint(fminf(__fdiv_rn(mo, ia), FLT_MAX));
+    // the first g with RN(ia * g) > max_out: pred(+0) false, pred(inf)
+    // true
+    G = __uint_as_float(first_true(0u, kInfBits, guess, [&](unsigned u) {
+          return __fmul_rn(ia, __uint_as_float(u)) > mo;
+        }) - 1u);
+  }
+  if (!(p.max_gain > G)) return -inf;
+  // the first a with RN(sp / a) <= G: pred(+0) false (sp / 0 = inf > G),
+  // pred(inf) true (sp / inf = 0)
+  const unsigned guess = __float_as_uint(__fdiv_rn(sp, G));
+  return __uint_as_float(first_true(0u, kInfBits, guess, [&](unsigned u) {
+    return __fdiv_rn(sp, __uint_as_float(u)) <= G;
+  }));
+}
+
+// neither negative nor -0 (NaN passes)
+__device__ __forceinline__ bool agc_state_ok(float v) {
+  return !(v < 0.f) && __float_as_uint(v) != 0x80000000u;
+}
+
+struct AgcTiles {
+  float ia[2][kTile], sm[2][kTile];  // cp.async's copies of tiles k+1, k+2
+  // per sample: ia, RN(ia * atk), RN(ia * dcy) (silent: +0), one_m_dcy
+  // (silent: 1); and the clip threshold, the suffix maximum
+  float4 c[2][kTile];
+  float2 t[2][kTile];
+  float a[2][kTile];  // the average after each step of tile k (lane 0)
+};
+
+__device__ __forceinline__ int agc_tile_len(long long n, int k) {
+  const long long left = n - (long long)k * kTile;
+  return (int)(left < kTile ? left : kTile);
+}
+
+// The helpers' work on one row (``h``: the thread's index among them;
+// each thread takes the same samples of every tile, so no barrier is
+// needed among them).
+struct AgcRow {
+  const float* __restrict__ ia_row;
+  const float* __restrict__ sm_row;
+  float* __restrict__ g_row;
+  long long n;
+  int h;
+
+  // cp.async's copies of tile k into buffer k & 1
+  __device__ __forceinline__ void fetch(AgcTiles& s, int k) const {
+    const int m = agc_tile_len(n, k);
+    const long long t0 = (long long)k * kTile;
+    for (int i = h; i < m; i += kAgcHelpers) {
+      cp_async4(&s.ia[k & 1][i], ia_row + t0 + i);
+      cp_async4(&s.sm[k & 1][i], sm_row + t0 + i);
+    }
+  }
+  // tile k's products and thresholds, off the chain
+  __device__ __forceinline__ void derive(AgcTiles& s, int k,
+                                         const AgcParams& p) const {
+    const int m = agc_tile_len(n, k), b = k & 1;
+    for (int i = h; i < m; i += kAgcHelpers) {
+      const float ia = s.ia[b][i];
+      const bool live = ia != 0.f;
+      s.c[b][i] = make_float4(ia, __fmul_rn(ia, p.atk),
+                              live ? __fmul_rn(ia, p.dcy) : 0.f,
+                              live ? p.one_m_dcy : 1.f);
+      s.t[b][i] = make_float2(agc_clip_threshold(ia, p), s.sm[b][i]);
+    }
+  }
+  // tile k's gains from the averages lane 0 recorded
+  __device__ __forceinline__ void gains(AgcTiles& s, int k,
+                                        const AgcParams& p) const {
+    const int m = agc_tile_len(n, k), b = k & 1;
+    float* g = g_row + (long long)k * kTile;
+    for (int i = h; i < m; i += kAgcHelpers)
+      g[i] = s.c[b][i].x != 0.f
+                 ? min_nan(__fdiv_rn(p.set_point, s.a[b][i]), p.max_gain)
+                 : 1.f;
+  }
+};
+
+// Lane 0's walk over one tile of the threshold walk: the chain.
+template <typename P>
+__device__ __forceinline__ float agc_walk_tile(float amp, const float4* sc,
+                                               const float2* st, float* sa,
+                                               int m, const AgcParams& p,
+                                               P& pr) {
+  auto step = [&](const float4 c, const float2 t) {
+    const float up = __fadd_rn(__fmul_rn(amp, p.one_m_atk), c.y);
+    const float dn = __fadd_rn(__fmul_rn(amp, c.w), c.z);
+    const float a = (c.x > amp) ? up : dn;
+    pr.mark(kAAverage, a);
+    amp = (a < t.x) ? t.y : a;
+    pr.mark(kAClip, amp);
+  };
+  int i = 0;
+  for (; i + kAgcGroup <= m; i += kAgcGroup) {
+    float4 c[kAgcGroup];
+    float2 t[kAgcGroup];
+#pragma unroll
+    for (int j = 0; j < kAgcGroup; ++j) {
+      c[j] = sc[i + j];
+      t[j] = st[i + j];
+    }
+#pragma unroll
+    for (int j = 0; j < kAgcGroup; ++j) {
+      step(c[j], t[j]);
+      sa[i + j] = amp;
+    }
+  }
+  for (; i < m; ++i) {
+    step(sc[i], st[i]);
+    sa[i] = amp;
+  }
+  return amp;
+}
+
+// The rest of a row in the threshold walk, once tile 0's products and
+// thresholds are formed and tile 1's copies are in (the prologue): lane
+// 0 walks tile k while the helpers form tile k-1's gains, copy in tile
+// k+2 and form tile k+1's products and thresholds; one block barrier a
+// tile.
+template <typename P>
+__device__ __forceinline__ float agc_threshold_walk(const AgcRow& r,
+                                                    float amp,
+                                                    const AgcParams& p,
+                                                    AgcTiles& s, P& pr) {
+  const int tiles = (int)((r.n + kTile - 1) / kTile);
+  for (int k = 0; k <= tiles; ++k) {
+    pr.mark(kATileWait, 0);
+    if (r.h < 0) {
+      if (threadIdx.x == 0 && k < tiles) {
+        const int m = agc_tile_len(r.n, k), b = k & 1;
+        amp = agc_walk_tile(amp, s.c[b], s.t[b], s.a[b], m, p, pr);
+        pr.count(kASteps, m);
+        pr.count(kATiles, 1);
+      }
+    } else {
+      // tile k-1's gains first: derive(k+1) writes over its samples
+      if (k >= 1) r.gains(s, k - 1, p);
+      if (k + 1 < tiles) {
+        if (k + 2 < tiles) r.fetch(s, k + 2);  // over tile k's copies
+        cp_async_commit();
+        cp_async_wait<1>();  // this thread's copies of tile k+1
+        r.derive(s, k + 1, p);
+      }
+    }
+    __syncthreads();
+  }
+  return amp;
+}
+
+// One row in the general walk: warp 0 alone, today's step on lane 0,
+// over arrays of its own.
+template <typename P>
+__device__ __forceinline__ float agc_general_walk(
+    const float* __restrict__ ia_row, const float* __restrict__ sm_row,
+    float* __restrict__ g_row, long long n, float amp, const AgcParams& p,
+    P& pr) {
   __shared__ float s_ia[kTile];
   __shared__ float s_sm[kTile];
   __shared__ float s_g[kTile];
-
-  const long long row = blockIdx.x;
   const int lane = threadIdx.x;
-  const float* ia_row = in_amp + row * n;
-  const float* sm_row = suffix_max + row * n;
-  float* g_row = gain + row * n;
-  float amp = amp_in[row];
-
   for (long long t0 = 0; t0 < n; t0 += kTile) {
     const int m = (int)((n - t0 < kTile) ? (n - t0) : kTile);
     for (int i = lane; i < m; i += kWarp) {
@@ -99,6 +370,7 @@ __global__ void agc_scan_kernel(const float* __restrict__ in_amp,
       s_sm[i] = sm_row[t0 + i];
     }
     __syncwarp();
+    pr.mark(kATileLoad, 0);
     if (lane == 0) {
       int i = 0;
       for (; i + kGroup <= m; i += kGroup) {
@@ -110,16 +382,74 @@ __global__ void agc_scan_kernel(const float* __restrict__ in_amp,
         }
 #pragma unroll
         for (int k = 0; k < kGroup; ++k)
-          s_g[i + k] = agc_step(amp, ia[k], sm[k], p);
+          s_g[i + k] = agc_step(amp, ia[k], sm[k], p, pr);
       }
-      for (; i < m; ++i) s_g[i] = agc_step(amp, s_ia[i], s_sm[i], p);
+      for (; i < m; ++i) s_g[i] = agc_step(amp, s_ia[i], s_sm[i], p, pr);
     }
     __syncwarp();
     for (int i = lane; i < m; i += kWarp) g_row[t0 + i] = s_g[i];
     __syncwarp();
+    pr.mark(kATileStore, 0);
+    pr.count(kASteps, m);
+    pr.count(kATiles, 1);
   }
-  if (lane == 0) amp_out[row] = amp;
+  return amp;
 }
+
+__global__ void __launch_bounds__(kAgcWarps * kWarp)
+    agc_scan_kernel(const float* __restrict__ in_amp,
+                    const float* __restrict__ suffix_max,
+                    float* __restrict__ gain,
+                    const float* __restrict__ amp_in,
+                    float* __restrict__ amp_out, long long n, AgcParams p) {
+  __shared__ __align__(16) AgcTiles s;
+  const long long row = blockIdx.x;
+  const int tid = threadIdx.x;
+  const AgcRow r{in_amp + row * n, suffix_max + row * n, gain + row * n, n,
+                 tid - kWarp};
+  float amp = amp_in[row];
+  AgcProbe pr;
+#ifdef SDRTPU_PROBE
+  __shared__ float s_sink;
+  pr.sink = &s_sink;
+#endif
+  pr.start();
+  // the walk, decided once a row and the same on every thread.  While
+  // every thread reads its share of the row (its loads independent of
+  // each other), the helpers copy in tiles 0 and 1 and form tile 0's
+  // products and thresholds, which the threshold walk starts from (and
+  // the general walk does not read)
+  int out = !(p.in_domain && agc_state_ok(amp));
+  if (!out) {
+    if (r.h >= 0) {
+      r.fetch(s, 0);
+      cp_async_commit();
+      if (n > kTile) r.fetch(s, 1);
+      cp_async_commit();
+    }
+#pragma unroll 8
+    for (long long i = tid; i < n; i += kAgcWarps * kWarp)
+      out |= (r.ia_row[i] < 0.f) | !agc_state_ok(r.sm_row[i]);
+    if (r.h >= 0) {
+      cp_async_wait<0>();
+      r.derive(s, 0, p);
+    }
+  }
+  out = __syncthreads_or(out);
+  pr.mark(kADomain, out);
+  if (!out) {
+    amp = agc_threshold_walk(r, amp, p, s, pr);
+  } else {
+    if (tid >= kWarp) return;
+    amp = agc_general_walk(r.ia_row, r.sm_row, r.g_row, n, amp, p, pr);
+  }
+  if (tid == 0) {
+    amp_out[row] = amp;
+    pr.flush(p.probe_out);
+  }
+}
+
+// -- pll_scan -----------------------------------------------------------
 
 __device__ __forceinline__ float wrap_pi(float ph) {
   return __fsub_rn(ph, __fmul_rn(kTwoPi, rintf(__fdiv_rn(ph, kTwoPi))));
@@ -192,15 +522,41 @@ __global__ void pll_scan_kernel(const float2* __restrict__ x,
 
 }  // namespace
 
+SDRTPU_PROBE_ENTRIES(agc,
+                     "average,divide,clip,tile_load,tile_store,tile_wait,"
+                     "domain,steps,tiles")
+
+// The threshold walk's domain of the parameters: set_point in (0,
+// FLT_MAX], max_out >= 0, the four coefficients in [+0, +inf].
+static int agc_params_in_domain(float one_m_atk, float atk, float one_m_dcy,
+                                float dcy, float set_point, float max_out) {
+  auto plus = [](float v) {  // +0 .. +inf, not NaN
+    unsigned u;
+    memcpy(&u, &v, sizeof u);
+    return u <= kInfBits;
+  };
+  return set_point > 0.f && set_point <= FLT_MAX && max_out >= 0.f &&
+         plus(one_m_atk) && plus(atk) && plus(one_m_dcy) && plus(dcy);
+}
+
 extern "C" int agc_scan_launch(const void* in_amp, const void* suffix_max,
                                void* gain, const void* amp_in, void* amp_out,
                                long long rows, long long n, float one_m_atk,
                                float atk, float one_m_dcy, float dcy,
                                float set_point, float max_gain, float max_out,
                                void* stream) {
-  const AgcParams p{one_m_atk, atk, one_m_dcy, dcy, set_point, max_gain,
-                    max_out};
-  agc_scan_kernel<<<(unsigned)rows, kWarp, 0, (cudaStream_t)stream>>>(
+  const AgcParams p{one_m_atk,
+                    atk,
+                    one_m_dcy,
+                    dcy,
+                    set_point,
+                    max_gain,
+                    max_out,
+                    agc_params_in_domain(one_m_atk, atk, one_m_dcy, dcy,
+                                         set_point, max_out),
+                    SDRTPU_PROBE_OUT(agc)};
+  agc_scan_kernel<<<(unsigned)rows, kAgcWarps * kWarp, 0,
+                    (cudaStream_t)stream>>>(
       static_cast<const float*>(in_amp), static_cast<const float*>(suffix_max),
       static_cast<float*>(gain), static_cast<const float*>(amp_in),
       static_cast<float*>(amp_out), n, p);

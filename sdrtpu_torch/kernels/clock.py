@@ -116,8 +116,8 @@ def mm_scan_ref(ext, bank, n, n_out, offset0, fstate0, cstate0, fmin, fmax,
 
 
 @functools.cache
-def _mm_launcher():
-    lib = _build.load("sync_loops")
+def _mm_launcher(probe: bool = False):
+    lib = _build.load("sync_loops", probe)
     fn = lib.mm_scan_launch
     fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_longlong] * 4
                    + [ctypes.c_int] * 4 + [ctypes.c_float] * 4
@@ -129,14 +129,20 @@ def _mm_launcher():
     return fn, room
 
 
-@functools.cache
-def _mm_room(device_index: int, cplx: bool, Tp: int) -> int:
+_MM_ROOM: dict = {}
+
+
+def _mm_room(room, device_index: int, cplx: bool, Tp: int) -> int:
     """The largest bank (bytes) the kernel for ``Tp`` padded taps takes
-    on that card; the C side opts the kernel in to it there, so this
-    runs before the first launch on each card."""
-    room = _mm_launcher()[1]
-    with torch.cuda.device(device_index):
-        return room(int(cplx), Tp)
+    on that card (``room``: its library's `mm_scan_max_bank_bytes`); the
+    C side opts the kernel in to it there, so this runs before the first
+    launch on each card.  Kept by entry and card (the entry too, so that
+    its id names it)."""
+    key = (id(room), device_index, cplx, Tp)
+    if key not in _MM_ROOM:
+        with torch.cuda.device(device_index):
+            _MM_ROOM[key] = (room, room(int(cplx), Tp))
+    return _MM_ROOM[key][1]
 
 
 def mm_scan(ext, bank, n, n_out, offset0, fstate0, cstate0, fmin, fmax,
@@ -149,6 +155,15 @@ def mm_scan(ext, bank, n, n_out, offset0, fstate0, cstate0, fmin, fmax,
     if ext.device.type == "cpu":
         return mm_scan_ref(ext, bank, n, n_out, offset0, fstate0, cstate0,
                            fmin, fmax, omega_gain, mu_gain)
+    return _mm_launch(_mm_launcher(), ext, bank, n, n_out, offset0, fstate0,
+                      cstate0, fmin, fmax, omega_gain, mu_gain)
+
+
+def _mm_launch(entries, ext, bank, n, n_out, offset0, fstate0, cstate0,
+               fmin, fmax, omega_gain, mu_gain, count=True):
+    """`mm_scan` on a CUDA tensor through a library's C entries
+    ``entries`` (`_mm_launcher`'s pair); ``count``: add its launch to
+    ``mm_scan.launches``."""
     if ext.device.type != "cuda":
         raise ValueError(f"mm_scan: unsupported device {ext.device}")
     cplx = ext.is_complex()
@@ -165,8 +180,8 @@ def mm_scan(ext, bank, n, n_out, offset0, fstate0, cstate0, fmin, fmax,
             and n_out >= 0):
         raise ValueError(f"mm_scan: bad shape ext {(rows, L)}, n {n}")
     Tp = next(w for w in _MM_TAP_WIDTHS if w >= T)
-    fn = _mm_launcher()[0]
-    limit = _mm_room(ext.device.index, cplx, Tp)
+    fn, room = entries
+    limit = _mm_room(room, ext.device.index, cplx, Tp)
     if P * Tp * 4 > limit:
         raise ValueError(f"mm_scan: a bank of {P} phases x {Tp} taps "
                          f"({P * Tp * 4} bytes) exceeds the {limit} bytes of "
@@ -195,7 +210,7 @@ def mm_scan(ext, bank, n, n_out, offset0, fstate0, cstate0, fmin, fmax,
                 fmin, fmax, omega_gain, mu_gain, stream)
     if rc != 0:
         raise RuntimeError(f"mm_scan: CUDA launch failed (error {rc})")
-    mm_scan.launches += 1
+    mm_scan.launches += count
     return syms, valid, offset, fstate, cstate
 
 

@@ -87,8 +87,8 @@ def agc_scan_ref(in_amp, suffix_max, amp0, one_m_atk, atk, one_m_dcy, dcy,
 
 
 @functools.cache
-def _agc_launcher():
-    fn = _build.load("seq_loops").agc_scan_launch
+def _agc_launcher(probe: bool = False):
+    fn = _build.load("seq_loops", probe).agc_scan_launch
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 2
                    + [ctypes.c_float] * 7 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -107,6 +107,14 @@ def agc_scan(in_amp, suffix_max, amp0, one_m_atk, atk, one_m_dcy, dcy,
     if in_amp.device.type == "cpu":
         return agc_scan_ref(in_amp, suffix_max, amp0, one_m_atk, atk,
                             one_m_dcy, dcy, set_point, max_gain, max_out)
+    return _agc_launch(_agc_launcher(), in_amp, suffix_max, amp0, one_m_atk,
+                       atk, one_m_dcy, dcy, set_point, max_gain, max_out)
+
+
+def _agc_launch(fn, in_amp, suffix_max, amp0, one_m_atk, atk, one_m_dcy,
+                dcy, set_point, max_gain, max_out, count=True):
+    """`agc_scan` on a CUDA tensor through the C entry ``fn``;
+    ``count``: add its launch to ``agc_scan.launches``."""
     _cuda_args("agc_scan", in_amp, torch.float32)
     _cuda_args("agc_scan", suffix_max, torch.float32)
     rows, n = in_amp.shape
@@ -115,7 +123,6 @@ def agc_scan(in_amp, suffix_max, amp0, one_m_atk, atk, one_m_dcy, dcy,
     amp0 = amp0.to(torch.float32).contiguous()
     gains = torch.empty_like(in_amp)
     amp = torch.empty_like(amp0)
-    fn = _agc_launcher()
     with torch.cuda.device(in_amp.device):
         stream = torch.cuda.current_stream(in_amp.device).cuda_stream
         rc = fn(in_amp.data_ptr(), suffix_max.data_ptr(), gains.data_ptr(),
@@ -123,7 +130,7 @@ def agc_scan(in_amp, suffix_max, amp0, one_m_atk, atk, one_m_dcy, dcy,
                 one_m_dcy, dcy, set_point, max_gain, max_out, stream)
     if rc != 0:
         raise RuntimeError(f"agc_scan: CUDA launch failed (error {rc})")
-    agc_scan.launches += 1
+    agc_scan.launches += count
     return gains, amp
 
 

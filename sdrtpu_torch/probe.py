@@ -1,4 +1,5 @@
-"""Latency probe of the scan kernels `costas_scan` and `viterbi_decode`.
+"""Latency probe of the scan kernels `costas_scan`, `viterbi_decode`,
+`mm_scan` and `agc_scan`.
 
 Each function launches the probe build of a kernel (``csrc/*.cu`` built
 with ``-DSDRTPU_PROBE``, `_build.load(name, probe=True)`; see
@@ -11,9 +12,13 @@ library of their own and add nothing to the wrappers' launch counts.
     from sdrtpu_torch import probe
     probe.costas(x, phase0, freq0, alpha, beta, fmin, fmax, mode)
     probe.viterbi(sym, exp_prev, prev, prev_bit)
+    probe.mm(ext, bank, n, n_out, offset0, fstate0, cstate0, fmin, fmax,
+             omega_gain, mu_gain)
+    probe.agc(in_amp, suffix_max, amp0, one_m_atk, atk, one_m_dcy, dcy,
+              set_point, max_gain, max_out)
     probe.identities()
 
-The first two return ``{"outputs": the kernel's outputs, "steps": n,
+The first four return ``{"outputs": the kernel's outputs, "steps": n,
 "tiles": t, "per_step": {part: cycles a step}, "per_tile": {part:
 cycles a tile}, "once": {part: cycles}, "cycles_per_step": all cycles /
 steps}``.  `identities` counts, over every float32 bit pattern, where
@@ -29,15 +34,18 @@ import torch
 
 from . import _build
 from .fec import viterbi as _viterbi
+from .kernels import clock as _clock
 from .kernels import loops as _loops
 
-# parts that run once a tile (tile load and store, symbol staging) and
-# once a launch (the final metrics and their argmax); the rest, and the
-# traceback, once a step.  Counts, not cycles: steps, tiles, and the
-# traceback's chunks walked again (``rewalks``).
-_PER_TILE = ("tile_load", "tile_store", "sym_tile")
-_ONCE = ("final",)
-_COUNTS = ("steps", "tiles", "rewalks")
+# parts that run once a tile (tile load and store, symbol staging, the
+# AGC walker's wait at the tile's barrier; `mm_scan`'s tile is a window)
+# and once a launch (the final metrics and their argmax, the AGC's domain
+# test); the rest, and the traceback, once a step.  Counts, not cycles:
+# steps, tiles, the traceback's chunks walked again (``rewalks``), the
+# M&M symbols walked in batches and the batches.
+_PER_TILE = ("tile_load", "tile_store", "sym_tile", "tile_wait")
+_ONCE = ("final", "domain")
+_COUNTS = ("steps", "tiles", "rewalks", "fast_steps", "batches")
 
 
 def run(lib, prefix: str, launch, device) -> tuple:
@@ -91,6 +99,26 @@ def viterbi(sym, exp_prev, prev, prev_bit) -> dict:
         lambda: _viterbi._viterbi_launch(
             _viterbi._viterbi_launcher(probe=True), sym, exp_prev, prev,
             prev_bit, count=False), sym.device)
+    return {"outputs": out, **table(raw)}
+
+
+def mm(*args) -> dict:
+    """`mm_scan`'s probe build (one launch; the arguments as
+    `mm_scan`'s, on the card).  A tile is a window of the input."""
+    out, raw = run(
+        _build.load("sync_loops", probe=True), "mm",
+        lambda: _clock._mm_launch(_clock._mm_launcher(probe=True), *args,
+                                  count=False), args[0].device)
+    return {"outputs": out, **table(raw)}
+
+
+def agc(*args) -> dict:
+    """`agc_scan`'s probe build (one launch; the arguments as
+    `agc_scan`'s, on the card)."""
+    out, raw = run(
+        _build.load("seq_loops", probe=True), "agc",
+        lambda: _loops._agc_launch(_loops._agc_launcher(probe=True), *args,
+                                   count=False), args[0].device)
     return {"outputs": out, **table(raw)}
 
 

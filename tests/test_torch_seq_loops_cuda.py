@@ -7,14 +7,21 @@ on a machine without it run it as
     python -m pytest tests/test_torch_seq_loops_cuda.py -q --noconftest
 
 Tolerances: the kernel rounds every product and sum on its own, as the
-plain loop's separate PyTorch kernels do, so the two agree to the last
-place except where PyTorch divides by a Python scalar (it multiplies by
-the reciprocal).  Both loops are contractive, so such differences do not
-grow: 1e-5 relative on the AGC gain and average, 1e-4 on the PLL's unit
-phasor and 1e-4 rad on its carried phase and frequency.
+plain loop's separate PyTorch kernels do, and the plain AGC divides a
+tensor by a tensor (IEEE division, as the kernel), so `agc_scan`'s gains
+and final average equal `agc_scan_ref`'s to the bit (a NaN equal to any
+NaN), in both of the kernel's walks: the threshold walk, and the general
+walk a row outside its domain takes (an average of -0.0, a negative
+|x|).  The PLL's plain loop wraps by a division by a Python scalar
+(PyTorch multiplies by the reciprocal) and its sinf/cosf may differ by
+an ulp; both loops are contractive, so such differences do not grow:
+1e-4 on the PLL's unit phasor and 1e-4 rad on its carried phase and
+frequency.
 Shapes: the receiver's (AGC: 750 steps for AM at 15 kHz, 1200 for SSB at
-24 kHz, 150 for CW at 3 kHz; PLL: 12 500 steps at 250 kHz), one and
-several rows, real and complex input, the average starting at 0.
+24 kHz, 150 for CW at 3 kHz at 50 ms blocks, and the receiver path's
+4 800, 3 000 and 600 steps at 200 ms blocks; PLL: 12 500 steps at 250
+kHz), one and several rows, real and complex input, the average starting
+at 0.
 """
 
 import numpy as np
@@ -30,12 +37,26 @@ def _need_card():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
 
 
+def _same_bits(a, b) -> bool:
+    """Equal to the bit, a NaN equal to any NaN."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return bool(torch.equal(na, nb)) and torch.equal(
+        a.masked_fill(na, 0).view(torch.int32),
+        b.masked_fill(nb, 0).view(torch.int32))
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("rows,n,cplx", [(1, 750, False), (1, 1200, False),
-                                         (1, 150, False), (1, 750, True),
-                                         (5, 1200, True), (3, 257, False),
-                                         (2, 6000, False)])
-def test_agc_scan_kernel_matches_plain(rows, n, cplx):
+@pytest.mark.parametrize("rows,n,cplx,walk", [
+    (1, 750, False, "threshold"), (1, 1200, False, "threshold"),
+    (1, 150, False, "threshold"), (1, 750, True, "threshold"),
+    (5, 1200, True, "threshold"), (3, 257, False, "threshold"),
+    (2, 6000, False, "threshold"), (1, 4800, False, "threshold"),
+    (1, 3000, False, "threshold"), (1, 600, False, "threshold"),
+    (1, 4800, False, "general: average -0.0"),
+    (2, 3000, False, "general: a negative |x|")])
+def test_agc_scan_kernel_matches_plain(rows, n, cplx, walk):
     _need_card()
     rng = np.random.default_rng(31)
     x = 1e-3 * rng.standard_normal((rows, n))
@@ -51,6 +72,10 @@ def test_agc_scan_kernel_matches_plain(rows, n, cplx):
     in_amp = x.abs().float().contiguous()
     smax = in_amp.flip(-1).cummax(-1).values.flip(-1).contiguous()
     amp0 = torch.zeros(rows, device="cuda")
+    if walk == "general: average -0.0":
+        amp0 = torch.full((rows,), -0.0, device="cuda")
+    elif walk == "general: a negative |x|":
+        in_amp[0, n // 3] = -1e-4
     atk, dcy = np.float32(50.0 / fs), np.float32(5.0 / fs)
     coef = (float(np.float32(1) - atk), float(atk),
             float(np.float32(1) - dcy), float(dcy), 1.0, 1e7, 10.0)
@@ -60,14 +85,19 @@ def test_agc_scan_kernel_matches_plain(rows, n, cplx):
     assert loops.agc_scan.launches == before + 1
     g_ref, amp_ref = loops.agc_scan_ref(in_amp, smax, amp0, *coef)
     assert bool(torch.isfinite(g).all())
-    torch.testing.assert_close(g, g_ref, rtol=1e-5, atol=0.0)
-    torch.testing.assert_close(amp, amp_ref, rtol=1e-5, atol=0.0)
+    assert _same_bits(g, g_ref)
+    assert _same_bits(amp, amp_ref)
+    # the look-ahead fired: the gain falls by half or more at a step
+    assert int((g_ref[:, 1:] < 0.5 * g_ref[:, :-1]).sum()) >= rows
+    if walk != "threshold":
+        return
     # through the op: same launch, state shape follows the rows
     st, y = agc(agc.init_state(), x if rows > 1 else x[0])
     assert loops.agc_scan.launches == before + 2
     assert st.shape == ((rows,) if rows > 1 else ())
-    torch.testing.assert_close(y.reshape(rows, n), x * g_ref.to(x.real.dtype),
-                               rtol=1e-5, atol=0.0)
+    assert _same_bits(torch.view_as_real(y.reshape(rows, n)) if cplx
+                      else y.reshape(rows, n),
+                      torch.view_as_real(x * g_ref) if cplx else x * g_ref)
 
 
 @pytest.mark.cuda
