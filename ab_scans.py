@@ -1,5 +1,5 @@
-"""A/B of the scan kernels `costas_scan`, `viterbi_decode`, `mm_scan` and
-`agc_scan` on one card.
+"""A/B of the scan kernels `costas_scan`, `viterbi_decode`, `mm_scan`,
+`agc_scan` and `pll_scan` on one card.
 
 Builds another tree's three sources beside this tree's and times both at
 the paths' shapes in one process, in the order other, this, this, other:
@@ -13,19 +13,20 @@ the Falcon 9 path's first block (60 000 in, its own inputs), and the
 16/32-tap banks (complex and float 16 x 256, complex 8 x 1 024, float
 32 x 1 600); `agc_scan` at 4 800, 3 000 and 600 steps (the receiver
 path's usb, am and cw launches) and 4 800 steps from an average of -0.0
-(a row outside the domain of the threshold walk).
+(a row outside the domain of the threshold walk); `pll_scan` on the
+pilot of `chip_smoke.pll_args` at 12 500 steps (the pll path's block),
+25 000 (the rds path's) and 2 rows x 25 000, and 12 500 steps from a
+phase of 100 rad (a row outside the bounded walk's domain).
 
     mkdir DIR
-    for f in sync_loops viterbi seq_loops; do
-      git show <rev>:sdrtpu_torch/csrc/$f.cu > DIR/$f.cu; done
-    git show <rev>:sdrtpu_torch/csrc/probe.cuh > DIR/probe.cuh
+    git archive <rev> sdrtpu_torch/csrc | tar -x -C DIR --strip-components=2
     python3 ab_scans.py [--old DIR] [--probe] [--probe-old PDIR] [--out FILE]
 
 Without ``--old`` only this tree is timed.  With ``--probe``, this
 tree's probe builds run once at the same shapes (`sdrtpu_torch.probe`)
 and their cycles per part are logged and kept; with ``--probe-old``, so
 do the probe builds of PDIR's sources (the other tree's kernels with the
-marks of ``csrc/probe.cuh`` put in, and that header beside them).  The
+marks of ``csrc/probe.cuh`` put in, and the headers beside them).  The
 other tree's C entries must be this tree's.  Prints the card's name and
 power limit first and one JSON object last.  Needs a card and nvcc.
 """
@@ -95,13 +96,18 @@ def entries(libs: dict) -> dict:
     agc.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 2
                     + [ctypes.c_float] * 7 + [ctypes.c_void_p])
     agc.restype = ctypes.c_int
+    pll = libs["seq_loops"].pll_scan_launch
+    pll.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 2
+                    + [ctypes.c_float] * 4 + [ctypes.c_void_p])
+    pll.restype = ctypes.c_int
     return {
         "costas_scan": lambda *a: loops._costas_launch(costas, *a,
                                                        count=False),
         "viterbi_decode": lambda *a: tv._viterbi_launch(vit, *a,
                                                         count=False),
         "mm_scan": lambda *a: clock._mm_launch((mm, room), *a, count=False),
-        "agc_scan": lambda *a: loops._agc_launch(agc, *a, count=False)}
+        "agc_scan": lambda *a: loops._agc_launch(agc, *a, count=False),
+        "pll_scan": lambda *a: loops._pll_launch(pll, *a, count=False)}
 
 
 def mm_args(mm, x, device="cuda"):
@@ -177,18 +183,24 @@ def inputs() -> dict:
         amp0 = torch.full((1,), -0.0 if "-0.0" in name else 0.0,
                           device="cuda")
         agc[f"{name} {n}"] = (in_amp, smax, amp0, *cs.AGC_COEF)
+    pll = {f"{rows} x {n}{', phase 100 rad' if phase0 else ''}":
+           cs.pll_args(rng, rows, n, phase0)
+           for rows, n, phase0 in ((1, 12500, 0.0), (1, 25000, 0.0),
+                                   (2, 25000, 0.0), (1, 12500, 100.0))}
     return {"costas_scan": {f"order 4 x {COSTAS_STEPS}": costas},
             "viterbi_decode": {f"K=7 x {VITERBI_STEPS}":
                                (sym, dec.exp_prev, dec.prev, dec.prev_bit)},
-            "mm_scan": mm, "agc_scan": agc}
+            "mm_scan": mm, "agc_scan": agc, "pll_scan": pll}
 
 
 KERNEL_NAMES = {"costas_scan": "costas_scan_kernel",
                 "viterbi_decode": "viterbi_kernel",
-                "mm_scan": "mm_scan_kernel", "agc_scan": "agc_scan_kernel"}
+                "mm_scan": "mm_scan_kernel", "agc_scan": "agc_scan_kernel",
+                "pll_scan": "pll_scan_kernel"}
 PROBES = {"costas_scan": ("costas", probe.costas),
           "viterbi_decode": ("viterbi", probe.viterbi),
-          "mm_scan": ("mm", probe.mm), "agc_scan": ("agc", probe.agc)}
+          "mm_scan": ("mm", probe.mm), "agc_scan": ("agc", probe.agc),
+          "pll_scan": ("pll", probe.pll)}
 
 
 def timed(fn, kernel: str, reps: int = REPS) -> dict:
@@ -234,7 +246,7 @@ def main(argv) -> int:
                     raise AssertionError(f"{kernel} at {shape}: this tree "
                                          "and the other differ")
                 row["bit_equal_to_old"] = same
-            reps = 20 if kernel == "agc_scan" else REPS
+            reps = 20 if kernel in ("agc_scan", "pll_scan") else REPS
             for i, tree in enumerate(order):
                 fn = runs[tree][kernel]
                 row[f"{i + 1}_{tree}"] = t = timed(lambda: fn(*a),
@@ -277,7 +289,8 @@ def old_probe(src: Path, out_dir: Path, shapes: dict) -> dict:
             for name in SOURCES}
     run = entries(libs)
     lib_of = {"costas_scan": "sync_loops", "viterbi_decode": "viterbi",
-              "mm_scan": "sync_loops", "agc_scan": "seq_loops"}
+              "mm_scan": "sync_loops", "agc_scan": "seq_loops",
+              "pll_scan": "seq_loops"}
     out = {}
     for kernel, by_shape in shapes.items():
         prefix = PROBES[kernel][0]

@@ -43,8 +43,8 @@ Phases, each fatal:
    (stage 1 in mix_decimate, one launch per block) and the rotator on;
 8. scan kernels: agc_scan and pll_scan against their plain PyTorch loops
    on the card, at the step counts the receiver and the WFM pilot PLL
-   launch and one long shape each, timed beside the plain loop
-   (agc_scan to the bit, also a row its general walk takes);
+   launch and one long shape each, timed beside the plain loop, to the
+   bit, also a row each kernel's general walk takes;
 9. receiver path: `IQFrontend` + `Receiver.push`/`flush` off one 10 Msps
    capture with a 65536-bin waterfall at 20 Hz and eight VFOs — three
    wfm stereo (one fft channelizer group, K1), two nfm (a second group),
@@ -54,7 +54,8 @@ Phases, each fatal:
    CPU run's agc_scan calls held on the card to the bit and timed (as
    on the live, remote and netclients paths);
 10. pll path: `BroadcastFm(pilot_mode="pll", rds_out=True)` over 8 blocks
-   of 12 500 samples (pll_scan, one launch per block);
+   of 12 500 samples (pll_scan, one launch per block, each held to the
+   bit against the plain loop on the card and one timed);
 11. ctcss: an NFM chain with the CTCSS squelch on 50 ms blocks, card
    against CPU, and the squelch op's time per block;
 12. sync kernels: costas_scan, mm_scan and viterbi_decode against their
@@ -73,7 +74,8 @@ Phases, each fatal:
    and each kernel held against its plain version on that block's
    inputs;
 14. rds path: the RDS fixture through `BroadcastFm(pilot_mode="pll")`'s
-   tap, `RdsDemod` and `RdsDecoder`: PI 0xF00D, PS "SDRTPU  ";
+   tap, `RdsDemod` and `RdsDecoder`: PI 0xF00D, PS "SDRTPU  "; its
+   pll_scan calls held and timed as the pll path's;
 15. viterbi rates and mm_scan banks (run after the sync kernels):
    viterbi_decode at rates 1/3 and 1/4 with K = 7 and 5, and mm_scan at
    16 taps x 256 phases, 8 x 1024 and 32 x 1600 (past 48 KB of shared
@@ -170,7 +172,6 @@ from sdrtpu_torch import roofline as rooflib  # the card's peaks and bounds
 K2_REL_TOL = 1e-5  # mix_decimate vs plain: max_abs_err / max|plain|
 AUDIO_ATOL = 2e-4  # card vs CPU audio, as tests/test_torch_pipeline.py
 SPEC_DB_ATOL = 0.02  # card vs CPU waterfall bins within 80 dB of the peak
-PLL_VCO_ATOL = 1e-4   # pll_scan vs plain loop: unit phasor; carried rad
 # One step's dependent chain, for the serial bound of the scan kernels:
 # cycles per dependent float32 operation and per IEEE division (assumed
 # latencies of the SM's FP32 pipe and of the division's reciprocal plus
@@ -181,7 +182,10 @@ DEP_OP_CYCLES, DEP_DIV_CYCLES = 4, 36
 # division and the clip test's product are off the chain)
 AGC_CHAIN = (5, 0)
 AGC_CHAIN_PR5 = (8, 1)  # mul add select select | div | min mul compare select
-PLL_CHAIN = (13, 2)  # sub wrap(div+3) mul add max min add add wrap(div+3)
+# PLL, the bounded walk: subtract, wrap (compare, select, subtract:
+# 3), mul, add, clip (2), add, add, wrap (3); the divisions are gone
+PLL_CHAIN = (13, 0)
+PLL_CHAIN_PR4 = (13, 2)  # the same with each wrap a division and 3 ops
 # Costas (order 4), as PR 10 walks a row whose phase stays bounded (every
 # row of the driven paths): sine and cosine (`sincos_small`: multiply,
 # round by an add and a subtract, three-part reduction, square, four
@@ -969,6 +973,41 @@ def agc_row(rng, rows: int, n: int, cplx: bool) -> tuple:
     return in_amp, smax
 
 
+def pll_args(rng, rows: int, n: int, phase0: float) -> tuple:
+    """pll_scan's arguments on the card: a 19 kHz pilot (40 Hz higher a
+    row) of amplitude 0.1 in complex noise of 0.01 at 250 kHz, the WFM
+    pilot PLL's coefficients (`BroadcastFm`'s: 25 kHz loop bandwidth,
+    18 750-19 250 Hz), the frequency starting at 19 kHz and the phase at
+    ``phase0``."""
+    from sdrtpu_torch.kernels import loops
+
+    fs = 250000.0
+    w = lambda hz: float(np.float32(2 * np.pi * hz / fs))
+    pll = loops.Pll(25000.0 / fs, init_freq=w(19000.0), min_freq=w(18750.0),
+                    max_freq=w(19250.0), device="cuda")
+    f = 19000.0 + 40.0 * np.arange(rows)[:, None]
+    x = (0.1 * np.exp(1j * (2 * np.pi * f / fs * np.arange(n) + 0.7))
+         + 0.01 * (rng.standard_normal((rows, n))
+                   + 1j * rng.standard_normal((rows, n))))
+    return (torch.as_tensor(x.astype(np.complex64), device="cuda"),
+            torch.full((rows,), phase0, device="cuda"),
+            torch.full((rows,), w(19000.0), device="cuda"),
+            *pll._coefficients())
+
+
+def pll_walk(args) -> str:
+    """The walk the pll_scan kernel takes on every row of ``args`` (the
+    wrapper's arguments): "bounded" (no division), "general" or
+    "mixed"."""
+    from sdrtpu_torch.kernels import loops
+
+    _, phase0, _, alpha, _, fmin, fmax = args
+    walks = {loops.pll_bounded(p, alpha, fmin, fmax)
+             for p in phase0.tolist()}
+    return ("mixed" if len(walks) > 1 else
+            "bounded" if walks.pop() else "general")
+
+
 def phase_seq_loops() -> list[dict]:
     """agc_scan and pll_scan against their plain loops on the card.
 
@@ -979,13 +1018,17 @@ def phase_seq_loops() -> list[dict]:
     to the plain loop (`same_bits`); and 4 800 steps from an average of
     -0.0, outside the threshold walk's domain: the kernel's general walk,
     bit-equal too.  The probe build runs once at 4 800 steps (cycles per
-    part, to the log).  PLL: 12 500 steps on a noisy 19 kHz pilot (the
-    pll path's block) and one long shape.  ``ms`` is device time per
-    launch (profiler), ``plain_ms`` the plain loop's wall time, taken
-    once.  ``bound_ms`` is the contract's bytes-or-operations bound.  What
-    really bounds a scan is its serial chain; `serial_chain_ms` reckons it
-    from assumed latencies, for the log only (AGC: this design's and the
-    PR 5 kernel's)."""
+    part, to the log).  PLL (`pll_args`): 12 500 steps (the pll path's
+    block), 2 rows x 25 000 (the rds path's), and 12 500 steps from a
+    phase of 100 rad, outside the bounded walk's domain (the kernel's
+    general walk), each bit-equal to the plain loop on the card; its
+    probe runs once at 12 500.  ``ms`` is device time per launch
+    (profiler), ``plain_ms`` the plain loop's wall time, taken once.
+    ``bound_ms`` is the contract's bytes-or-operations bound.  What
+    really bounds a scan is its serial chain; `serial_chain_ms` reckons
+    it from assumed latencies, this design's and the one before its
+    redesign (`AGC_CHAIN_PR5`; `PLL_CHAIN_PR4`, with both divisions), for
+    the log only: it is not measured."""
     from sdrtpu_torch import probe
     from sdrtpu_torch.kernels import loops
 
@@ -1033,45 +1076,43 @@ def phase_seq_loops() -> list[dict]:
         f"parts {t['cycles_per_step']:.1f} a step (marks serialise the "
         "parts: this ranks them, the kernel's time is ms)")
 
-    fs = 250000.0
-    w = lambda hz: float(np.float32(2 * np.pi * hz / fs))
-    pll = loops.Pll(25000.0 / fs, init_freq=w(19000.0), min_freq=w(18750.0),
-                    max_freq=w(19250.0), device="cuda")
     pll_rows = {}
-    pll_main = (1, 12500)
-    for rows, n in [pll_main, (2, 25000)]:
-        t_ax = np.arange(n)
-        f = 19000.0 + 40.0 * np.arange(rows)[:, None]
-        x = (0.1 * np.exp(1j * (2 * np.pi * f / fs * t_ax + 0.7))
-             + 0.01 * (rng.standard_normal((rows, n))
-                       + 1j * rng.standard_normal((rows, n))))
-        x = torch.as_tensor(x.astype(np.complex64), device="cuda")
-        args = (x, torch.zeros(rows, device="cuda"),
-                torch.full((rows,), w(19000.0), device="cuda"),
-                *pll._coefficients())
-        vco, phase, freq = loops.pll_scan(*args)
+    pll_main = (1, 12500, "bounded")
+    for rows, n, walk in [pll_main, (2, 25000, "bounded"),
+                          (1, 12500, "general")]:
+        args = pll_args(rng, rows, n, 0.0 if walk == "bounded" else 100.0)
+        if pll_walk(args) != walk:
+            raise AssertionError(f"pll_scan {(rows, n)}: a {pll_walk(args)} "
+                                 f"row, want {walk}")
+        if (rows, n, walk) == pll_main:
+            pll_main_args = args
+        got = loops.pll_scan(*args)
         torch.cuda.synchronize()
-        plain_ms = wall_ms(lambda: loops.pll_scan_ref(*args))
-        vco_ref, phase_ref, freq_ref = loops.pll_scan_ref(*args)
-        err = (vco - vco_ref).abs().max().item()
-        carry = max(loops._wrap_pi(phase - phase_ref).abs().max().item(),
-                    (freq - freq_ref).abs().max().item())
-        lock = torch.angle(vco[:, -100:] * torch.conj(x[:, -100:]))
-        if not (max(err, carry) <= PLL_VCO_ATOL
-                and lock.abs().max().item() < 0.5):
-            raise AssertionError(
-                f"pll_scan disagrees at {(rows, n)}: phasor err {err}, "
-                f"carry err {carry}, lock {lock.abs().max().item()} rad")
-        pll_rows[(rows, n)] = t = {
-            "shape": [rows, n], "max_abs_err": err, "carry_abs_err": carry,
+        t0 = time.perf_counter()
+        want = loops.pll_scan_ref(*args)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        check = held("pll_scan", got, want, f"{(rows, n)}, {walk} walk")
+        lock = torch.angle(got[0][:, -100:] * torch.conj(args[0][:, -100:]))
+        if not lock.abs().max().item() < 0.5:
+            raise AssertionError(f"pll_scan {(rows, n)} did not lock: "
+                                 f"{lock.abs().max().item()} rad")
+        pll_rows[(rows, n, walk)] = t = {
+            "shape": [rows, n], "walk": walk, **check,
             "ms": device_ms(lambda: loops.pll_scan(*args), 10,
                             "pll_scan_kernel"),
             "plain_ms": plain_ms,
             # complex64 in and out, the carries; ~60 operations per step
             # (atan2f, two wraps, cosf and sinf)
             **roofline(16 * rows * n + 16 * rows, 60 * rows * n)}
-        log(f"pll_scan {(rows, n)}: {t}; reckoned serial chain "
-            f"{serial_chain_ms(n, PLL_CHAIN):.4f} ms")
+        chain = PLL_CHAIN if walk == "bounded" else PLL_CHAIN_PR4
+        log(f"pll_scan {(rows, n, walk)}: {t}; "
+            f"{reckoned(n, chain, PLL_CHAIN_PR4)}")
+    t = probe.pll(*pll_main_args)
+    t.pop("outputs")
+    log(f"probe pll_scan {tuple(pll_main_args[0].shape)}: cycles a step "
+        f"{t['per_step']}; a tile {t['per_tile']}; all parts "
+        f"{t['cycles_per_step']:.1f} a step (marks serialise the parts)")
 
     def entry(name, replaces, main, rows, tol_key, tol):
         m = rows[main]
@@ -1091,9 +1132,9 @@ def phase_seq_loops() -> list[dict]:
 
     agc = entry("agc_scan", "sdrtpu/kernels/loops.py:185", agc_main,
                 agc_rows, "bits", "equal")
-    return [agc,
-            entry("pll_scan", "sdrtpu/kernels/loops.py:79", pll_main,
-                  pll_rows, "vco_atol", PLL_VCO_ATOL)]
+    pll = entry("pll_scan", "sdrtpu/kernels/loops.py:79", pll_main,
+                pll_rows, "bits", "equal")
+    return [agc, pll]
 
 
 # The receiver path's deployment.  Every frequency is a multiple of 5 Hz,
@@ -1445,7 +1486,7 @@ def phase_pll(card: str) -> dict:
         fn.launches = 0
     outs = []
     t0 = time.perf_counter()
-    with torch.inference_mode():
+    with torch.inference_mode(), recording("pll_scan") as calls:
         for b in range(blocks):
             xb = torch.as_tensor(x[b * n:(b + 1) * n], device="cuda")
             sg, (a, rds) = gpu(sg, xb)
@@ -1456,6 +1497,7 @@ def phase_pll(card: str) -> dict:
     want = expected_launches(pll_scan=blocks)
     if launches != want:
         raise AssertionError(f"pll path launched {launches}, want {want}")
+    check = hold_pll_calls(calls["pll_scan"], "the pll path")
     a_err = r_err = 0.0
     with torch.inference_mode():
         for b in range(blocks):
@@ -1478,7 +1520,7 @@ def phase_pll(card: str) -> dict:
             "kernel_launches": launches, "ms_per_block": gpu_s * 1e3 / blocks,
             "audio_vs_cpu_max_abs_err": a_err, "rds_vs_cpu_max_abs_err": r_err,
             "pll_phase_vs_cpu_rad": phase_err, "separation_db": sep,
-            "card": card}
+            "kernel_check": check, "card": card}
 
 
 def phase_ctcss(card: str) -> dict:
@@ -1597,8 +1639,9 @@ def held(name: str, got, want, where) -> dict:
     costas_scan within COSTAS_REL_TOL of the output's peak and
     COSTAS_PHASE_ATOL on the carried phase and frequency, NaN where the
     plain version has NaN and nowhere else; mm_scan (symbols, valid mask
-    and carries), agc_scan (gains and final average) and viterbi_decode
-    (bits and metrics) equal to the bit (`same_bits`).  Returns
+    and carries), agc_scan (gains and final average), pll_scan (VCO
+    phasor, phase and frequency) and viterbi_decode (bits and metrics)
+    equal to the bit (`same_bits`).  Returns
     max_abs_err (and the carries' for costas_scan; both over the values
     that are not NaN) and whether all is bit-equal; raises on a
     disagreement, naming ``where``."""
@@ -1651,7 +1694,7 @@ def recording(*names):
     from sdrtpu_torch.kernels import clock, loops
 
     mods = {"costas_scan": loops, "mm_scan": clock, "viterbi_decode": tv,
-            "agc_scan": loops}
+            "agc_scan": loops, "pll_scan": loops}
     saved = {name: getattr(mods[name], name) for name in names}
     calls = {name: [] for name in names}
 
@@ -1702,37 +1745,79 @@ def hold_recorded(name: str, calls, where: str) -> dict:
 
 
 def at_path_shape(name: str, args, reps: int = 20) -> dict:
-    """A path's recorded call of mm_scan or agc_scan launched again on
-    the card at its own shape and timed: device ms (profiler, ``reps``
-    launches), the plain version's wall time on the card (once; for
-    mm_scan only where the call emits at most 10 000 symbols), the steps
-    (symbols for mm_scan); the reckoned chain of this design and of the
-    PR 5 kernel goes to the log (`reckoned`)."""
+    """A path's recorded call of mm_scan, agc_scan or pll_scan launched
+    again on the card at its own shape and timed: device ms (profiler,
+    ``reps`` launches), the plain version's wall time on the card (once;
+    for mm_scan only where the call emits at most 10 000 symbols, for
+    pll_scan never: `hold_pll_calls` times it over all of a path's
+    calls), the steps (symbols for mm_scan); the reckoned chain of this
+    design and of the kernel before its redesign (`*_CHAIN_PR5`,
+    `PLL_CHAIN_PR4`) goes to the log only (`reckoned`)."""
     from sdrtpu_torch.kernels import clock, loops
 
     fn, ref = {"mm_scan": (clock.mm_scan, clock.mm_scan_ref),
-               "agc_scan": (loops.agc_scan, loops.agc_scan_ref)}[name]
+               "agc_scan": (loops.agc_scan, loops.agc_scan_ref),
+               "pll_scan": (loops.pll_scan, loops.pll_scan_ref)}[name]
     a = tuple(x.cuda() if torch.is_tensor(x) else x for x in args)
     out = fn(*a)
     if name == "mm_scan":
         steps, chains = int(out[1].sum().item()), (MM_CHAIN, MM_CHAIN_PR5)
-    else:
+    elif name == "agc_scan":
         steps, chains = a[0].shape[1], (AGC_CHAIN, AGC_CHAIN_PR5)
+    else:
+        steps, chains = a[0].shape[1], (PLL_CHAIN, PLL_CHAIN_PR4)
     with SmClocks() as clocks:
         ms = device_ms(lambda: fn(*a), reps, f"{name}_kernel")
-    plain = (wall_ms(lambda: ref(*a)) if name == "agc_scan" or steps <= 10_000
-             else None)
+    plain = (wall_ms(lambda: ref(*a)) if name == "agc_scan"
+             or (name == "mm_scan" and steps <= 10_000) else None)
     row = {"shape": list(a[0].shape), "steps": steps, "ms": ms,
            "plain_ms": plain, "sm_clock_mhz": clocks.summary()}
+    if name == "pll_scan":
+        row["walk"] = pll_walk(a)
     log(f"{name} at a path's shape: {row}; {reckoned(steps, *chains)}")
     return row
 
 
-def reckoned(steps: int, chain, chain_pr5) -> str:
-    """The reckoned serial chain of this design and of the PR 5 kernel's,
-    for the log (not a measurement)."""
+def reckoned(steps: int, chain, chain_old) -> str:
+    """The reckoned serial chain of this design and of the kernel's
+    before its redesign, for the log (not a measurement)."""
     return (f"reckoned serial chain {serial_chain_ms(steps, chain):.4f} ms "
-            f"(PR 5 design: {serial_chain_ms(steps, chain_pr5):.4f} ms)")
+            f"(before the redesign: {serial_chain_ms(steps, chain_old):.4f} "
+            "ms)")
+
+
+def hold_pll_calls(calls, where: str) -> dict:
+    """A path's recorded pll_scan launches on the card held by `held`
+    against the plain version on the card on the same inputs: the calls'
+    rows stacked into one run of the plain loop (its rows are
+    independent), one row a call; and one call (the second, past the
+    loop's pull-in, else the first) timed at the path's shape
+    (`at_path_shape`)."""
+    from sdrtpu_torch.kernels import loops
+
+    if not calls:
+        raise AssertionError(f"{where}: no pll_scan call")
+    shapes = {tuple(args[0].shape) for args, _ in calls}
+    coef = {tuple(args[3:]) for args, _ in calls}
+    if len(shapes) != 1 or len(coef) != 1 or any(
+            args[0].device.type != "cuda" for args, _ in calls):
+        raise AssertionError(f"{where}: pll_scan calls of shapes {shapes}, "
+                             f"coefficients {coef}, not all on the card")
+    x, phase0, freq0 = (torch.cat([args[i] for args, _ in calls])
+                        for i in range(3))
+    got = [torch.cat([out[i] for _, out in calls]) for i in range(3)]
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        want = loops.pll_scan_ref(x, phase0, freq0, *calls[0][0][3:])
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        check = held("pll_scan", got, want,
+                     f"{where}'s {len(calls)} calls {shapes.pop()}")
+        timed = at_path_shape("pll_scan", calls[min(1, len(calls) - 1)][0])
+    return {"calls": len(calls), "shape": list(calls[0][0][0].shape),
+            "walks": pll_walk((x, phase0, freq0, *calls[0][0][3:])),
+            **check, "plain_ms_all_calls_at_once": plain_ms,
+            "at_path_shape": timed}
 
 
 def costas_long_checks(coef) -> list[dict]:
@@ -1850,9 +1935,10 @@ def viterbi_grid_checks() -> dict:
 def probe_and_identities(costas_args, viterbi_args, mm_args) -> dict:
     """The probe builds of costas_scan, viterbi_decode and mm_scan once at
     the meteor path's shapes (cycles per part of a step, to the log
-    only), and the identities the Costas kernel rests on over every
-    float32 (`sdrtpu_torch.probe`; every count of a difference must be
-    0)."""
+    only), and the identities the Costas kernel, and the PLL's bounded
+    walk (`wrap_pi_turn`, `clip`: ``csrc/phase_wrap.cuh``), rest on over
+    every float32 (`sdrtpu_torch.probe`; every count of a difference must
+    be 0)."""
     from sdrtpu_torch import probe
 
     for name, fn, args in (("costas_scan", probe.costas, costas_args),
@@ -2478,7 +2564,7 @@ def phase_rds(card: str) -> dict:
     for fn in counters.values():
         fn.launches = 0
     t0 = time.perf_counter()
-    with torch.inference_mode():
+    with torch.inference_mode(), recording("pll_scan") as calls:
         for b in range(RDS_BLOCKS):
             xb = torch.as_tensor(iq[b * RDS_BLOCK:(b + 1) * RDS_BLOCK],
                                  device="cuda")
@@ -2498,7 +2584,9 @@ def phase_rds(card: str) -> dict:
                    f"{RDS_FIXTURE}: 6 blocks of 25 000 samples at 250 kHz",
             "pi": f"{dec.pi_code:#06x}", "ps": dec.program_service_name,
             "kernel_launches": launches,
-            "ms_per_block": wall * 1e3 / RDS_BLOCKS, "card": card}
+            "ms_per_block": wall * 1e3 / RDS_BLOCKS,
+            "pll_check": hold_pll_calls(calls["pll_scan"], "the rds path"),
+            "card": card}
 
 
 # -- Viterbi rates 1/3 and 1/4, wider M&M banks, fp32 pinned against TF32,
@@ -5042,6 +5130,18 @@ def main(argv) -> int:
                 k["max_abs_err"] = max(k["max_abs_err"], check["max_abs_err"])
         if k["name"] == "pll_scan":
             k["launches"] = paths["pll"]["kernel_launches"]["pll_scan"]
+            k["rds_path_launches"] = paths["rds"]["kernel_launches"][
+                "pll_scan"]
+            # each path's launches held on the card and one of them timed
+            for name, check in (("pll", paths["pll"]["kernel_check"]),
+                                ("rds", paths["rds"]["pll_check"])):
+                k[f"{name}_path_check"] = {
+                    key: v for key, v in check.items()
+                    if key != "at_path_shape"}
+                k["max_abs_err"] = max(k["max_abs_err"], check["max_abs_err"])
+            k["path_shapes"] = {
+                "pll": paths["pll"]["kernel_check"]["at_path_shape"],
+                "rds": paths["rds"]["pll_check"]["at_path_shape"]}
         if k["name"] == "chunk_poly":  # once per fused group and block
             k["receiver_path_launches"] = (
                 paths["receiver"]["kernel_launches"]["chunk_poly"])

@@ -16,13 +16,21 @@
 // therefore keeps everything that does not depend on the carry off the
 // chain.
 //
-// pll_scan: one warp owns one row and walks it in tiles of kTile samples:
-//   1. all 32 lanes load the tile into shared memory (coalesced) and take
-//      atan2f of every sample;
-//   2. lane 0 runs the recurrence over the tile out of shared memory,
-//      leaving the phase before each update; it reads kGroup steps'
-//      inputs into registers ahead of those steps;
-//   3. all lanes take cosf/sinf of the phases and store them coalesced.
+// pll_scan: one block of kPllWarps warps owns one row, in tiles of
+// kPllTile samples.  Lane 0 walks the recurrence over tile k out of shared
+// memory (kPllGroup steps' angles read ahead into registers), leaving the
+// phase before each update; meanwhile warps 1.. take atan2f of tile k+1
+// (loaded straight from device memory: their tile's work is a small share
+// of lane 0's walk) and cosf/sinf of tile k-1's phases, stored coalesced;
+// one block barrier a tile.  Lane 0's step is the error, its wrap, the
+// frequency and its clip, the phase and its wrap.  Each wrap was a
+// division (`wrap_pi`); a row whose |phase0| <= kPllPhaseBound, in a loop
+// whose alpha and frequency bounds keep both wraps' inputs below
+// loops.COSTAS_WRAP_TURN (`pll_params_bounded`), takes `wrap_pi_turn`
+// instead, a compare, a select and a subtraction (`phase_wrap.cuh`,
+// shared with the Costas step: the same bits as the division's wrap at
+// every float32 below COSTAS_WRAP_TURN, by the probe build's sweep,
+// `probe.identities`); any other row takes the division.
 //
 // agc_scan: one block of kAgcWarps warps owns one row.  The step's gain
 // needs an IEEE division, and whether the step clips (ia * gain >
@@ -55,8 +63,10 @@
 // every product and sum rounded on its own (__fmul_rn/__fadd_rn: no
 // fused multiply-add, so the plain PyTorch loops give the same bits),
 // IEEE division, rintf (half to even, as jnp.round) in the phase wrap,
-// and no fast-math intrinsics.  A probe build (-DSDRTPU_PROBE, probe.cuh)
-// reads the SM clock around the parts of an AGC step.
+// and no fast-math intrinsics (atan2f, cosf and sinf are the functions
+// torch.atan2, torch.cos and torch.sin call on the card).  A probe build
+// (-DSDRTPU_PROBE, probe.cuh) reads the SM clock around the parts of an
+// AGC or a PLL step.
 //
 // The C entry points take raw pointers and the stream, launch on that
 // stream, neither synchronise nor allocate, and return
@@ -65,8 +75,10 @@
 #include <cuda_runtime.h>
 
 #include <cfloat>
+#include <cmath>
 #include <cstring>
 
+#include "phase_wrap.cuh"
 #include "probe.cuh"
 
 namespace {
@@ -74,7 +86,6 @@ namespace {
 constexpr int kTile = 256;
 constexpr int kWarp = 32;
 constexpr int kGroup = 8;  // steps whose inputs lane 0 reads ahead
-constexpr float kTwoPi = 6.28318530717958647692f;
 constexpr unsigned kInfBits = 0x7f800000u;
 
 // minimum that lets a NaN through, as jnp.minimum and torch.minimum do
@@ -451,72 +462,166 @@ __global__ void __launch_bounds__(kAgcWarps * kWarp)
 
 // -- pll_scan -----------------------------------------------------------
 
-__device__ __forceinline__ float wrap_pi(float ph) {
-  return __fsub_rn(ph, __fmul_rn(kTwoPi, rintf(__fdiv_rn(ph, kTwoPi))));
-}
+constexpr int kPllWarps = 4;   // warp 0 walks, the others prepare and finish
+constexpr int kPllTile = 512;
+constexpr int kPllGroup = 16;  // steps whose inputs lane 0 reads ahead
+constexpr int kPllHelpers = (kPllWarps - 1) * kWarp;
+// a row whose |phase| starts at most this, in a loop whose frequency
+// bounds and alpha keep every |phase + freq + alpha * err| below
+// COSTAS_WRAP_TURN (`bounded`), keeps |phase| below it at every step
+constexpr float kPllPhaseBound = 3.2f;
 
 struct PllParams {
   float alpha, beta, fmin, fmax;
+  float wrap_fast;     // loops.COSTAS_WRAP_FAST: below it the wrap is v + 0
+  unsigned two_pi;     // kTwoPiBits, a parameter: see `wrap_pi_turn`
+  int bounded;         // the parameters keep a bounded row's wraps in a turn
+  unsigned long long* probe_out;  // a probe build's counters, else null
 };
 
+// the parts of a step and of a tile that the probe build times (lane 0:
+// the error and its wrap, the frequency and its clip, the phase and its
+// wrap, the phase's store, the wait at the tile's barrier)
+enum PllPart { kLError, kLFreq, kLPhase, kLStore, kLTileWait, kLSteps,
+               kLTiles, kPllParts };
+#ifdef SDRTPU_PROBE
+using PllProbe = Probe<kPllParts>;
+#else
+using PllProbe = NoProbe;
+#endif
+
+template <bool kBounded>
+__device__ __forceinline__ float pll_wrap(float v, const PllParams& p) {
+  if constexpr (kBounded)
+    return wrap_pi_turn(v, p.wrap_fast, p.two_pi);
+  else
+    return wrap_pi(v);
+}
+
 // One PLL step on the pilot's angle: returns the phase the VCO is
-// emitted at (the one before the update).
+// emitted at (the one before the update).  kBounded: both wraps' inputs
+// lie within a turn (see `bounded`), so they take `wrap_pi_turn`, no
+// division.
+template <bool kBounded, typename P>
 __device__ __forceinline__ float pll_step(float& phase, float& freq,
-                                          float ang, const PllParams& p) {
+                                          float ang, const PllParams& p,
+                                          P& pr) {
   const float emitted = phase;
-  const float err = wrap_pi(__fsub_rn(ang, phase));
-  freq = __fadd_rn(freq, __fmul_rn(p.beta, err));
-  freq = min_nan(p.fmax, (freq > p.fmin || freq != freq) ? freq : p.fmin);
-  phase = wrap_pi(__fadd_rn(__fadd_rn(phase, freq), __fmul_rn(p.alpha, err)));
+  const float err = pll_wrap<kBounded>(__fsub_rn(ang, phase), p);
+  pr.mark(kLError, err);
+  freq = clip(__fadd_rn(freq, __fmul_rn(p.beta, err)), p.fmin, p.fmax);
+  pr.mark(kLFreq, freq);
+  phase = pll_wrap<kBounded>(
+      __fadd_rn(__fadd_rn(phase, freq), __fmul_rn(p.alpha, err)), p);
+  pr.mark(kLPhase, phase);
   return emitted;
 }
 
-__global__ void pll_scan_kernel(const float2* __restrict__ x,
-                                float2* __restrict__ vco,
-                                const float* __restrict__ phase_in,
-                                const float* __restrict__ freq_in,
-                                float* __restrict__ phase_out,
-                                float* __restrict__ freq_out, long long n,
-                                PllParams p) {
-  __shared__ float s_ang[kTile];
-  __shared__ float s_ph[kTile];
+__device__ __forceinline__ int pll_tile_len(long long n, int k) {
+  const long long left = n - (long long)k * kPllTile;
+  return (int)(left < kPllTile ? left : kPllTile);
+}
 
+// tile k's angles into ``ang``, thread ``h`` of ``stride`` taking every
+// stride-th sample
+__device__ __forceinline__ void pll_angles(const float2* __restrict__ x_row,
+                                           long long n, int k, float* ang,
+                                           int h, int stride) {
+  const int m = pll_tile_len(n, k);
+  const float2* x = x_row + (long long)k * kPllTile;
+#pragma unroll 4
+  for (int i = h; i < m; i += stride) {
+    const float2 v = x[i];
+    ang[i] = atan2f(v.y, v.x);
+  }
+}
+
+// tile k's VCO phasors from the phases lane 0 left in ``ph``
+__device__ __forceinline__ void pll_phasors(const float* ph,
+                                            float2* __restrict__ v_row,
+                                            long long n, int k, int h) {
+  const int m = pll_tile_len(n, k);
+  float2* v = v_row + (long long)k * kPllTile;
+  for (int i = h; i < m; i += kPllHelpers)
+    v[i] = make_float2(cosf(ph[i]), sinf(ph[i]));
+}
+
+// Lane 0's walk over one tile: the chain.
+template <bool kBounded, typename P>
+__device__ __forceinline__ void pll_walk_tile(float& phase, float& freq,
+                                              const float* sa, float* sp,
+                                              int m, const PllParams& p,
+                                              P& pr) {
+  int i = 0;
+  for (; i + kPllGroup <= m; i += kPllGroup) {
+    float a[kPllGroup];
+#pragma unroll
+    for (int j = 0; j < kPllGroup; ++j) a[j] = sa[i + j];
+#pragma unroll
+    for (int j = 0; j < kPllGroup; ++j) {
+      sp[i + j] = pll_step<kBounded>(phase, freq, a[j], p, pr);
+      pr.mark(kLStore, 0);
+    }
+  }
+  for (; i < m; ++i) {
+    sp[i] = pll_step<kBounded>(phase, freq, sa[i], p, pr);
+    pr.mark(kLStore, 0);
+  }
+}
+
+__global__ void __launch_bounds__(kPllWarps * kWarp)
+    pll_scan_kernel(const float2* __restrict__ x, float2* __restrict__ vco,
+                    const float* __restrict__ phase_in,
+                    const float* __restrict__ freq_in,
+                    float* __restrict__ phase_out,
+                    float* __restrict__ freq_out, long long n, PllParams p) {
+  __shared__ float s_ang[2][kPllTile];  // the angles of tiles k, k+1
+  __shared__ float s_ph[2][kPllTile];   // the phases of tiles k-1, k
   const long long row = blockIdx.x;
-  const int lane = threadIdx.x;
+  const int tid = threadIdx.x;
   const float2* x_row = x + row * n;
   float2* v_row = vco + row * n;
   float phase = phase_in[row];
   float freq = freq_in[row];
-
-  for (long long t0 = 0; t0 < n; t0 += kTile) {
-    const int m = (int)((n - t0 < kTile) ? (n - t0) : kTile);
-    for (int i = lane; i < m; i += kWarp) {
-      const float2 v = x_row[t0 + i];
-      s_ang[i] = atan2f(v.y, v.x);
-    }
-    __syncwarp();
-    if (lane == 0) {
-      int i = 0;
-      for (; i + kGroup <= m; i += kGroup) {
-        float ang[kGroup];
-#pragma unroll
-        for (int k = 0; k < kGroup; ++k) ang[k] = s_ang[i + k];
-#pragma unroll
-        for (int k = 0; k < kGroup; ++k)
-          s_ph[i + k] = pll_step(phase, freq, ang[k], p);
+  PllProbe pr;
+#ifdef SDRTPU_PROBE
+  __shared__ float s_sink;
+  pr.sink = &s_sink;
+#endif
+  pr.start();
+  // the walk, decided once a row
+  const bool bounded = p.bounded && fabsf(phase) <= kPllPhaseBound;
+  const int tiles = (int)((n + kPllTile - 1) / kPllTile);
+  pll_angles(x_row, n, 0, s_ang[0], tid, kPllWarps * kWarp);
+  __syncthreads();
+  pr.mark(kLTileWait, 0);
+  // lane 0 walks tile k while the helpers form tile k-1's phasors and
+  // tile k+1's angles; one block barrier a tile
+  for (int k = 0; k <= tiles; ++k) {
+    const int b = k & 1;
+    if (tid == 0) {
+      if (k < tiles) {
+        const int m = pll_tile_len(n, k);
+        if (bounded)
+          pll_walk_tile<true>(phase, freq, s_ang[b], s_ph[b], m, p, pr);
+        else
+          pll_walk_tile<false>(phase, freq, s_ang[b], s_ph[b], m, p, pr);
+        pr.count(kLSteps, m);
+        pr.count(kLTiles, 1);
       }
-      for (; i < m; ++i) s_ph[i] = pll_step(phase, freq, s_ang[i], p);
+    } else if (tid >= kWarp) {
+      const int h = tid - kWarp;
+      if (k >= 1) pll_phasors(s_ph[b ^ 1], v_row, n, k - 1, h);
+      if (k + 1 < tiles) pll_angles(x_row, n, k + 1, s_ang[b ^ 1], h,
+                                    kPllHelpers);
     }
-    __syncwarp();
-    for (int i = lane; i < m; i += kWarp) {
-      const float ph = s_ph[i];
-      v_row[t0 + i] = make_float2(cosf(ph), sinf(ph));
-    }
-    __syncwarp();
+    __syncthreads();
+    pr.mark(kLTileWait, 0);
   }
-  if (lane == 0) {
+  if (tid == 0) {
     phase_out[row] = phase;
     freq_out[row] = freq;
+    pr.flush(p.probe_out);
   }
 }
 
@@ -525,6 +630,7 @@ __global__ void pll_scan_kernel(const float2* __restrict__ x,
 SDRTPU_PROBE_ENTRIES(agc,
                      "average,divide,clip,tile_load,tile_store,tile_wait,"
                      "domain,steps,tiles")
+SDRTPU_PROBE_ENTRIES(pll, "error,freq,phase,store,tile_wait,steps,tiles")
 
 // The threshold walk's domain of the parameters: set_point in (0,
 // FLT_MAX], max_out >= 0, the four coefficients in [+0, +inf].
@@ -563,15 +669,43 @@ extern "C" int agc_scan_launch(const void* in_amp, const void* suffix_max,
   return (int)cudaGetLastError();
 }
 
+// A bounded row (|phase0| <= kPllPhaseBound) keeps every wrap's input
+// within one turn when kPllPhaseBound + max|fmin, fmax| + |alpha| *
+// kPllPhaseBound stays below COSTAS_WRAP_TURN: |ang| <= float32(pi) (atan2f),
+// so |ang - phase| <= pi + kPllPhaseBound; each wrap within a turn leaves
+// |.| <= float32(pi), so |err| <= pi and |phase| stays within the bound;
+// |freq| <= max|fmin, fmax| after the clip; the 0.999 covers the sums'
+// rounding.  NaN bounds or alpha: the general walk.  Mirrored by
+// loops.pll_bounded.
+static int pll_params_bounded(float alpha, float fmin, float fmax,
+                              float wrap_turn) {
+  const float reach = kPllPhaseBound + fmaxf(fabsf(fmin), fabsf(fmax)) +
+                      fabsf(alpha) * kPllPhaseBound;
+  return fmin == fmin && fmax == fmax && reach < 0.999f * wrap_turn;
+}
+
 extern "C" int pll_scan_launch(const void* x, void* vco, const void* phase_in,
                                const void* freq_in, void* phase_out,
                                void* freq_out, long long rows, long long n,
                                float alpha, float beta, float fmin, float fmax,
                                void* stream) {
-  pll_scan_kernel<<<(unsigned)rows, kWarp, 0, (cudaStream_t)stream>>>(
+  // loops.COSTAS_WRAP_FAST and COSTAS_WRAP_TURN, formed as loops forms
+  // them: float32(pi)'s successor and float32(3) * float32(pi)
+  const float pi = (float)3.14159265358979323846;
+  const float wrap_fast = nextafterf(pi, FLT_MAX);
+  const float wrap_turn = 3.0f * pi;
+  const PllParams p{alpha,
+                    beta,
+                    fmin,
+                    fmax,
+                    wrap_fast,
+                    kTwoPiBits,
+                    pll_params_bounded(alpha, fmin, fmax, wrap_turn),
+                    SDRTPU_PROBE_OUT(pll)};
+  pll_scan_kernel<<<(unsigned)rows, kPllWarps * kWarp, 0,
+                    (cudaStream_t)stream>>>(
       static_cast<const float2*>(x), static_cast<float2*>(vco),
       static_cast<const float*>(phase_in), static_cast<const float*>(freq_in),
-      static_cast<float*>(phase_out), static_cast<float*>(freq_out), n,
-      PllParams{alpha, beta, fmin, fmax});
+      static_cast<float*>(phase_out), static_cast<float*>(freq_out), n, p);
   return (int)cudaGetLastError();
 }

@@ -39,8 +39,12 @@ def critically_damped(bandwidth: float) -> tuple[float, float]:
 
 def _wrap_pi(phase: torch.Tensor) -> torch.Tensor:
     """Wrap to (-pi, pi]; ``torch.round`` rounds half to even, as
-    ``jnp.round`` does."""
-    return phase - _TWO_PI * torch.round(phase / _TWO_PI)
+    ``jnp.round`` does.  The divisor is a tensor: PyTorch on the card
+    multiplies by the reciprocal of a Python scalar divisor, which rounds
+    twice, where a tensor divisor is one IEEE division on either device,
+    as in the kernels' wrap."""
+    return phase - _TWO_PI * torch.round(
+        phase / torch.full_like(phase, _TWO_PI))
 
 
 def _f32(v: float) -> float:
@@ -176,6 +180,32 @@ class Agc(StreamOp):
 
 # -- PLL ---------------------------------------------------------------
 
+# A `pll_scan` row whose |phase0| is at most this, in a loop whose alpha
+# and frequency bounds keep both wraps' inputs below COSTAS_WRAP_TURN,
+# keeps |phase| below it at every step; the kernel wraps such a row
+# without the division (`pll_bounded`).
+PLL_PHASE_BOUND = 3.2
+
+
+def pll_bounded(phase0: float, alpha: float, fmin: float,
+                fmax: float) -> bool:
+    """Whether the `pll_scan` kernel walks a row from ``phase0`` with
+    these coefficients without the division (``csrc/seq_loops.cu``
+    `pll_params_bounded` and the row's test, in float32 as there):
+    |phase0| <= PLL_PHASE_BOUND, and PLL_PHASE_BOUND + max(|fmin|,
+    |fmax|) + |alpha| * PLL_PHASE_BOUND below 0.999 * COSTAS_WRAP_TURN,
+    which bounds |phase + freq + alpha * err| (|err| <= float32(pi)) and
+    leaves |ang - phase| below a turn too.  NaN bounds: False."""
+    f = np.float32
+    bound = f(PLL_PHASE_BOUND)
+    if np.isnan(f(fmin)) or np.isnan(f(fmax)):
+        return False
+    reach = (bound + max(abs(f(fmin)), abs(f(fmax)))
+             + abs(f(alpha)) * bound)
+    return bool(reach < f(0.999) * f(COSTAS_WRAP_TURN)
+                and abs(f(phase0)) <= bound)
+
+
 def pll_scan_ref(x, phase0, freq0, alpha, beta, fmin, fmax):
     """Plain PyTorch version of `pll_scan`: the loop over time, all rows
     at once.  ``x``: (rows, n) complex64; carries (rows,) float32."""
@@ -191,8 +221,8 @@ def pll_scan_ref(x, phase0, freq0, alpha, beta, fmin, fmax):
 
 
 @functools.cache
-def _pll_launcher():
-    fn = _build.load("seq_loops").pll_scan_launch
+def _pll_launcher(probe: bool = False):
+    fn = _build.load("seq_loops", probe).pll_scan_launch
     fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 2
                    + [ctypes.c_float] * 4 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -209,6 +239,13 @@ def pll_scan(x, phase0, freq0, alpha, beta, fmin, fmax):
     """
     if x.device.type == "cpu":
         return pll_scan_ref(x, phase0, freq0, alpha, beta, fmin, fmax)
+    return _pll_launch(_pll_launcher(), x, phase0, freq0, alpha, beta, fmin,
+                       fmax)
+
+
+def _pll_launch(fn, x, phase0, freq0, alpha, beta, fmin, fmax, count=True):
+    """`pll_scan` on a CUDA tensor through the C entry ``fn``; ``count``:
+    add its launch to ``pll_scan.launches``."""
     _cuda_args("pll_scan", x, torch.complex64)
     rows, n = x.shape
     if phase0.shape != (rows,) or freq0.shape != (rows,):
@@ -217,7 +254,6 @@ def pll_scan(x, phase0, freq0, alpha, beta, fmin, fmax):
     freq0 = freq0.to(torch.float32).contiguous()
     vco = torch.empty_like(x)
     phase, freq = torch.empty_like(phase0), torch.empty_like(freq0)
-    fn = _pll_launcher()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = fn(x.data_ptr(), vco.data_ptr(), phase0.data_ptr(),
@@ -225,7 +261,7 @@ def pll_scan(x, phase0, freq0, alpha, beta, fmin, fmax):
                 alpha, beta, fmin, fmax, stream)
     if rc != 0:
         raise RuntimeError(f"pll_scan: CUDA launch failed (error {rc})")
-    pll_scan.launches += 1
+    pll_scan.launches += count
     return vco, phase, freq
 
 

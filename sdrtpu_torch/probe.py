@@ -1,5 +1,5 @@
 """Latency probe of the scan kernels `costas_scan`, `viterbi_decode`,
-`mm_scan` and `agc_scan`.
+`mm_scan`, `agc_scan` and `pll_scan`.
 
 Each function launches the probe build of a kernel (``csrc/*.cu`` built
 with ``-DSDRTPU_PROBE``, `_build.load(name, probe=True)`; see
@@ -16,9 +16,10 @@ library of their own and add nothing to the wrappers' launch counts.
              omega_gain, mu_gain)
     probe.agc(in_amp, suffix_max, amp0, one_m_atk, atk, one_m_dcy, dcy,
               set_point, max_gain, max_out)
+    probe.pll(x, phase0, freq0, alpha, beta, fmin, fmax)
     probe.identities()
 
-The first four return ``{"outputs": the kernel's outputs, "steps": n,
+The first five return ``{"outputs": the kernel's outputs, "steps": n,
 "tiles": t, "per_step": {part: cycles a step}, "per_tile": {part:
 cycles a tile}, "once": {part: cycles}, "cycles_per_step": all cycles /
 steps}``.  `identities` counts, over every float32 bit pattern, where
@@ -38,11 +39,11 @@ from .kernels import clock as _clock
 from .kernels import loops as _loops
 
 # parts that run once a tile (tile load and store, symbol staging, the
-# AGC walker's wait at the tile's barrier; `mm_scan`'s tile is a window)
-# and once a launch (the final metrics and their argmax, the AGC's domain
-# test); the rest, and the traceback, once a step.  Counts, not cycles:
-# steps, tiles, the traceback's chunks walked again (``rewalks``), the
-# M&M symbols walked in batches and the batches.
+# AGC and PLL walkers' wait at the tile's barrier; `mm_scan`'s tile is a
+# window) and once a launch (the final metrics and their argmax, the
+# AGC's domain test); the rest, and the traceback, once a step.  Counts,
+# not cycles: steps, tiles, the traceback's chunks walked again
+# (``rewalks``), the M&M symbols walked in batches and the batches.
 _PER_TILE = ("tile_load", "tile_store", "sym_tile", "tile_wait")
 _ONCE = ("final", "domain")
 _COUNTS = ("steps", "tiles", "rewalks", "fast_steps", "batches")
@@ -122,6 +123,16 @@ def agc(*args) -> dict:
     return {"outputs": out, **table(raw)}
 
 
+def pll(*args) -> dict:
+    """`pll_scan`'s probe build (one launch; the arguments as
+    `pll_scan`'s, on the card)."""
+    out, raw = run(
+        _build.load("seq_loops", probe=True), "pll",
+        lambda: _loops._pll_launch(_loops._pll_launcher(probe=True), *args,
+                                   count=False), args[0].device)
+    return {"outputs": out, **table(raw)}
+
+
 IDENTITY_COUNTS = ("patterns", "small_patterns", "sincosf_differ",
                    "sincos_small_differ", "wrap_fast_patterns",
                    "wrap_fast_differ", "wrap_turn_patterns",
@@ -136,7 +147,9 @@ def identities(device="cuda") -> dict:
     in any bit; how many lie below `COSTAS_WRAP_FAST` and at how many of
     all the kernel's `wrap_pi_fast` differs from the division's wrap
     (``wrap_fast_*``); how many lie below `COSTAS_WRAP_TURN` and at how
-    many of those its `wrap_pi_turn` differs (``wrap_turn_*``); and at
+    many of those `wrap_pi_turn` (``csrc/phase_wrap.cuh``, shared by
+    `costas_scan` and `pll_scan`) differs in either of its forms, the
+    turn's bits an immediate or a parameter (``wrap_turn_*``); and at
     how many the max.NaN / min.NaN clip differs from the compare-and-
     select clip at the bounds (-1, 1) and (-pi, pi) (``clip_differ``).
     A NaN equals any NaN."""

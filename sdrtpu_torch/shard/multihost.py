@@ -122,13 +122,13 @@ def _rank_main(call_path, rank, n, address, device, results):
         dist.destroy_process_group()
 
 
-def run_processes(fn, n: int, workdir=None, args=(), device: str = "cpu",
+def run_processes(fn, n: int, workdir=None, args=(), device: str = "cuda",
                   timeout: float = 300.0) -> list:
     """``fn(*args)`` in ``n`` fresh processes, one rank each; returns the
     ranks' results in rank order.
 
-    ``device``: "cpu" (gloo, one thread a process) or "cuda" (NCCL, rank
-    r on card r; needs n cards).  The processes rendezvous through a
+    ``device``: "cuda" (NCCL, rank r on card r; needs n cards) or "cpu"
+    (gloo, one thread a process).  The processes rendezvous through a
     ``file://`` store in ``workdir`` (a new temporary directory when
     None).  ``fn`` and its arguments and result must pickle; ``fn`` runs
     under the ``spawn`` start method, so it lives at a module's top level

@@ -59,7 +59,8 @@ def test_four_rank_64ch_scan(tmp_path):
              {"ch": s1, "q": s2})
 
     ranks = run_processes(workers.scan64_rank, 4, tmp_path,
-                          args=(4, CENTERS, FS, IF_RATE, x), timeout=120)
+                          args=(4, CENTERS, FS, IF_RATE, x), device="cpu",
+                          timeout=120)
     got = np.concatenate([r["a"] for r in sorted(
         ranks, key=lambda r: r["channel_index"])])
     assert got.shape == ref_j.shape == (C, N // 40)
@@ -103,4 +104,5 @@ def test_scaling_efficiency_keys():
 
 def test_a_failing_rank_is_reported(tmp_path):
     with pytest.raises(RuntimeError, match="rank 1 failed"):
-        run_processes(workers.failing_rank, 2, tmp_path, timeout=60)
+        run_processes(workers.failing_rank, 2, tmp_path, device="cpu",
+                      timeout=60)

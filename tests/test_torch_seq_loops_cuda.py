@@ -12,16 +12,18 @@ tensor by a tensor (IEEE division, as the kernel), so `agc_scan`'s gains
 and final average equal `agc_scan_ref`'s to the bit (a NaN equal to any
 NaN), in both of the kernel's walks: the threshold walk, and the general
 walk a row outside its domain takes (an average of -0.0, a negative
-|x|).  The PLL's plain loop wraps by a division by a Python scalar
-(PyTorch multiplies by the reciprocal) and its sinf/cosf may differ by
-an ulp; both loops are contractive, so such differences do not grow:
-1e-4 on the PLL's unit phasor and 1e-4 rad on its carried phase and
-frequency.
+|x|).  The PLL's plain loop wraps by a division by a tensor (IEEE
+division, as the kernel) and calls torch.atan2, torch.cos and
+torch.sin, which on the card are the kernel's atan2f, cosf and sinf, so
+`pll_scan`'s VCO phasor and carried phase and frequency equal
+`pll_scan_ref`'s to the bit too, in both of its walks: the bounded walk
+(no division) and the general walk a row from a phase past
+loops.PLL_PHASE_BOUND takes.
 Shapes: the receiver's (AGC: 750 steps for AM at 15 kHz, 1200 for SSB at
 24 kHz, 150 for CW at 3 kHz at 50 ms blocks, and the receiver path's
-4 800, 3 000 and 600 steps at 200 ms blocks; PLL: 12 500 steps at 250
-kHz), one and several rows, real and complex input, the average starting
-at 0.
+4 800, 3 000 and 600 steps at 200 ms blocks; PLL: 12 500 and 25 000
+steps at 250 kHz, the pll and rds paths' blocks), one and several rows,
+real and complex input, the average starting at 0.
 """
 
 import numpy as np
@@ -101,8 +103,10 @@ def test_agc_scan_kernel_matches_plain(rows, n, cplx, walk):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("rows,n", [(1, 12500), (3, 1000), (2, 255)])
-def test_pll_scan_kernel_matches_plain(rows, n):
+@pytest.mark.parametrize("rows,n,phase0,nan_row", [
+    (1, 12500, 0.0, None), (3, 1000, 0.0, None), (2, 255, 0.0, None),
+    (2, 25000, 0.0, None), (1, 12500, 100.0, None), (2, 1000, -0.0, 1)])
+def test_pll_scan_kernel_matches_plain(rows, n, phase0, nan_row):
     _need_card()
     rng = np.random.default_rng(32)
     fs = 250000.0
@@ -111,26 +115,33 @@ def test_pll_scan_kernel_matches_plain(rows, n):
     x = (0.1 * np.exp(1j * (2 * np.pi * f / fs * t + 0.7))
          + 0.01 * (rng.standard_normal((rows, n))
                    + 1j * rng.standard_normal((rows, n))))
+    if nan_row is not None:
+        x[nan_row, n // 2] = np.nan  # a NaN sample: the carry turns NaN
     x = torch.as_tensor(x.astype(np.complex64), device="cuda")
     w = lambda hz: 2 * np.pi * hz / fs
     pll = loops.Pll(25000.0 / fs, init_freq=w(19000.0), min_freq=w(18750.0),
                     max_freq=w(19250.0), device="cuda")
-    phase0 = torch.zeros(rows, device="cuda")
+    phase0 = torch.full((rows,), phase0, device="cuda")
     freq0 = torch.full((rows,), float(np.float32(w(19000.0))), device="cuda")
     coef = pll._coefficients()
+    # phase 100 rad: a row outside the bounded walk's domain
+    assert loops.pll_bounded(float(phase0[0]), coef[0], *coef[2:]) == (
+        abs(float(phase0[0])) < 4)
     before = loops.pll_scan.launches
     vco, phase, freq = loops.pll_scan(x, phase0, freq0, *coef)
     torch.cuda.synchronize()
     assert loops.pll_scan.launches == before + 1
     vco_ref, phase_ref, freq_ref = loops.pll_scan_ref(x, phase0, freq0, *coef)
-    torch.testing.assert_close(vco, vco_ref, rtol=0.0, atol=1e-4)
-    wrapped = loops._wrap_pi(phase - phase_ref)
-    assert float(wrapped.abs().max()) <= 1e-4
-    torch.testing.assert_close(freq, freq_ref, rtol=0.0, atol=1e-4)
+    assert _same_bits(torch.view_as_real(vco), torch.view_as_real(vco_ref))
+    assert _same_bits(phase, phase_ref)
+    assert _same_bits(freq, freq_ref)
     # locked onto the pilot by the end of the block
-    lock = torch.angle(vco[:, -100:] * torch.conj(x[:, -100:]))
+    clean = [r for r in range(rows) if r != nan_row]
+    lock = torch.angle(vco[clean, -100:] * torch.conj(x[clean, -100:]))
     if n >= 1000:
         assert float(lock.abs().max()) < 0.5
+    if nan_row is not None:
+        assert bool(torch.isnan(phase[nan_row]))
 
 
 @pytest.mark.cuda

@@ -162,7 +162,7 @@ def ranks(tmp_path_factory):
         if n not in done:
             done[n] = run_processes(
                 workers.session_rank, n, tmp_path_factory.mktemp(f"r{n}"),
-                args=(_jobs(n),), timeout=TIMEOUT)
+                args=(_jobs(n),), device="cpu", timeout=TIMEOUT)
         return done[n]
 
     return get
