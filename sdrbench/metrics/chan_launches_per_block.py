@@ -1,0 +1,9 @@
+"""Calls of the CUDA launch API on the host that start inside
+``sdrtpu.channelizer``, the channelizer, over the traced window, per
+block completed in it (`sdrbench.spans`)."""
+
+from sdrbench import spans
+
+
+def read(run):
+    return spans.launches_per_block(run, "sdrtpu.channelizer")

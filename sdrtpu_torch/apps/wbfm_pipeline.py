@@ -16,6 +16,14 @@ Steady state (`scan_call`/`scan_repeat`), in sub-windows of blocks:
 - the other channelizer methods ("pallas", "xla-fused", "xla") take one
   block per call, so the front end runs once per block in a Python loop
   (`_front_window`) and the IF-rate back end once per sub-window.
+
+Spans (`metrics.span`, host ranges while ``torch.profiler`` records):
+``sdrtpu.wbfm.call`` around `__call__`, ``sdrtpu.wbfm.scan_call`` around
+`scan_call` and `scan_repeat`, both with the pipeline's call count as
+argument; ``sdrtpu.wbfm.window`` around each sub-window; inside them
+``sdrtpu.channelizer`` (`Channelizer`), ``sdrtpu.if_back_end`` (demod,
+audio resampler, de-emphasis) and ``sdrtpu.waterfall``
+(`SpectrumAnalyzer.transform`), which never nest in one another.
 """
 
 from __future__ import annotations
@@ -29,6 +37,7 @@ from ..kernels.fftspec import SpectrumAnalyzer
 from ..kernels.iir import Deemphasis
 from ..kernels.resample import RationalResampler
 from ..kernels.wfm import BroadcastFm
+from ..metrics import span
 from ..shard.channelizer import Channelizer
 
 
@@ -56,6 +65,7 @@ class WbfmMultiVfoPipeline(StreamOp):
         self.block_len = int(block_len)
         self.sub_samples = float(sub_samples)
         self.skip_rotator = bool(skip_rotator)
+        self.calls = 0  # entry calls so far: the id of a call's spans
         self.channelizer = Channelizer(
             self.offsets, in_samplerate, if_rate, block_len,
             method=channelizer_method, sparse_thresh_db=sparse_fold_db,
@@ -126,24 +136,31 @@ class WbfmMultiVfoPipeline(StreamOp):
         return st
 
     def __call__(self, state, x):
-        st = dict(state)
-        st["chan"], y = self.channelizer(state["chan"], x)  # (C, n_if)
-        st["demod"], (stereo, _) = self.demod(state["demod"], y)
-        st["audio"], a = self.audio_resamp(state["audio"], stereo)
-        st["deemph"], a = self.deemph(state["deemph"], a)
-        if self.spectrum is not None:
-            _, spec = self.spectrum((), x)  # (frames, fft_size) dB
-            return st, (a, spec)
-        return st, a
+        self.calls += 1
+        with span("sdrtpu.wbfm.call", self.calls):
+            st = dict(state)
+            st["chan"], y = self.channelizer(state["chan"], x)  # (C, n_if)
+            a = self._if_back_end(st, state, y)
+            if self.spectrum is not None:
+                _, spec = self.spectrum((), x)  # (frames, fft_size) dB
+                return st, (a, spec)
+            return st, a
+
+    def _if_back_end(self, st, state, y):
+        """Demod, audio resampler and de-emphasis of the IF ``y`` (C, n),
+        their states into ``st``: the audio (2, C, n_af)."""
+        with span("sdrtpu.if_back_end", self.calls):
+            st["demod"], (stereo, _) = self.demod(state["demod"], y)
+            st["audio"], a = self.audio_resamp(state["audio"], stereo)
+            st["deemph"], a = self.deemph(state["deemph"], a)
+        return a
 
     # -- batched steady state ------------------------------------------------
 
     def _back_end(self, st, state, y, segs, K: int):
         """IF-rate tail on the (C, K*n_if) window, reframed per block:
         audio (K, 2, C, n_af) and spectra (K, frames, fft_size)."""
-        st["demod"], (stereo, _) = self.demod(state["demod"], y)
-        st["audio"], a = self.audio_resamp(state["audio"], stereo)
-        st["deemph"], a = self.deemph(state["deemph"], a)
+        a = self._if_back_end(st, state, y)
         a = a.reshape(a.shape[0], a.shape[1], K, -1).movedim(2, 0)
         if self.spectrum is not None:
             spec = self.spectrum.transform(segs)
@@ -154,11 +171,12 @@ class WbfmMultiVfoPipeline(StreamOp):
 
     def _batched(self, state, x_cat, K: int):
         """One pass of the whole chain over a K-block window."""
-        st = dict(state)
-        st["chan"], y = self.channelizer(state["chan"], x_cat)
-        segs = (self.spectrum.extract(x_cat)
-                if self.spectrum is not None else ())
-        return self._back_end(st, state, y, segs, K)
+        with span("sdrtpu.wbfm.window", self.calls):
+            st = dict(state)
+            st["chan"], y = self.channelizer(state["chan"], x_cat)
+            segs = (self.spectrum.extract(x_cat)
+                    if self.spectrum is not None else ())
+            return self._back_end(st, state, y, segs, K)
 
     def _front_body(self, chan_state, xb):
         """One block through the channelizer, plus its waterfall segments."""
@@ -178,12 +196,13 @@ class WbfmMultiVfoPipeline(StreamOp):
         """Per-block front end over the K ``blocks`` of one sub-window,
         then the shared back end once: the path of the channelizer
         methods that take one block per call."""
-        chan_state, ys, segs = state["chan"], [], []
-        for xb in blocks:
-            chan_state, (y, seg) = self._front_body(chan_state, xb)
-            ys.append(y)
-            segs.append(seg)
-        return self._back_batch(state, chan_state, ys, segs, K)
+        with span("sdrtpu.wbfm.window", self.calls):
+            chan_state, ys, segs = state["chan"], [], []
+            for xb in blocks:
+                chan_state, (y, seg) = self._front_body(chan_state, xb)
+                ys.append(y)
+                segs.append(seg)
+            return self._back_batch(state, chan_state, ys, segs, K)
 
     def _subk(self, K: int) -> int:
         """Blocks per sub-window: floor(sub_samples / block_len), at
@@ -209,34 +228,38 @@ class WbfmMultiVfoPipeline(StreamOp):
     def scan_call(self, state, xs):
         """K stacked wideband blocks ``(K, block_len)`` -> K blocks of output
         (audio ``(K, 2, C, n_af)``, spectra ``(K, frames, fft_size)``)."""
-        K = xs.shape[0]
-        sub = self._subk(K)
-        if self._whole_windows():
-            windows = xs.reshape(K // sub, sub * xs.shape[-1])
+        self.calls += 1
+        with span("sdrtpu.wbfm.scan_call", self.calls):
+            K = xs.shape[0]
+            sub = self._subk(K)
+            if self._whole_windows():
+                windows = xs.reshape(K // sub, sub * xs.shape[-1])
 
-            def run(state, xw):
-                return self._batched(state, xw, sub)
-        else:
-            windows = xs.reshape(K // sub, sub, xs.shape[-1])
+                def run(state, xw):
+                    return self._batched(state, xw, sub)
+            else:
+                windows = xs.reshape(K // sub, sub, xs.shape[-1])
 
-            def run(state, xw):
-                return self._front_window(state, xw, sub)
-        return self._windows(state, run, windows, K, sub)
+                def run(state, xw):
+                    return self._front_window(state, xw, sub)
+            return self._windows(state, run, windows, K, sub)
 
     def scan_repeat(self, state, x, K: int):
         """Like `scan_call` on K copies of ONE device-resident block (the
         benchmark steady state)."""
-        n = x.shape[-1]
-        sub = self._subk(K)
-        if self._whole_windows():
-            x_sub = x[None, :].expand(sub, n).reshape(-1)
+        self.calls += 1
+        with span("sdrtpu.wbfm.scan_call", self.calls):
+            n = x.shape[-1]
+            sub = self._subk(K)
+            if self._whole_windows():
+                x_sub = x[None, :].expand(sub, n).reshape(-1)
 
-            def run(state, _):
-                return self._batched(state, x_sub, sub)
-        else:
-            def run(state, _):
-                return self._front_window(state, [x] * sub, sub)
-        return self._windows(state, run, [None] * (K // sub), K, sub)
+                def run(state, _):
+                    return self._batched(state, x_sub, sub)
+            else:
+                def run(state, _):
+                    return self._front_window(state, [x] * sub, sub)
+            return self._windows(state, run, [None] * (K // sub), K, sub)
 
     def _windows(self, state, run, windows, K: int, sub: int):
         """``run`` over the sub-windows in order, outputs as (K, ...)."""

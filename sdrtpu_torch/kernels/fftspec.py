@@ -20,6 +20,7 @@ import torch
 
 from .. import resolve_device
 from ..graph.block import StreamOp
+from ..metrics import span
 from .windows import periodic_window
 
 
@@ -102,14 +103,17 @@ class SpectrumAnalyzer(StreamOp):
         return x.reshape(n // self.interval, self.interval)[:, : self.nz_size]
 
     def transform(self, segments: torch.Tensor) -> torch.Tensor:
-        """(frames, nz_size) raw segments -> (frames, fft_size) dB."""
-        frames = segments * self._window_t
-        spec = torch.fft.fft(frames, n=self.fft_size, dim=-1)
-        if not self._center_in_window:
-            spec = torch.fft.fftshift(spec, dim=-1)
-        power = spec.real ** 2 + spec.imag ** 2
-        db = 10.0 * torch.log10(power / np.float32(self.fft_size ** 2) + 1e-20)
-        return db.to(torch.float32)
+        """(frames, nz_size) raw segments -> (frames, fft_size) dB, in the
+        span ``sdrtpu.waterfall``."""
+        with span("sdrtpu.waterfall"):
+            frames = segments * self._window_t
+            spec = torch.fft.fft(frames, n=self.fft_size, dim=-1)
+            if not self._center_in_window:
+                spec = torch.fft.fftshift(spec, dim=-1)
+            power = spec.real ** 2 + spec.imag ** 2
+            db = 10.0 * torch.log10(
+                power / np.float32(self.fft_size ** 2) + 1e-20)
+            return db.to(torch.float32)
 
     def __call__(self, state, x):
         return state, self.transform(self.extract(x))

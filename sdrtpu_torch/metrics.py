@@ -1,6 +1,7 @@
 """Structured runtime metrics (host copy of ``sdrtpu/metrics.py``).
 
-Plain Python; `apps.receiver.Receiver` feeds it as the reference does.
+The registry is plain Python; `apps.receiver.Receiver` feeds it as the
+reference does.
 
 The reference has no metrics beyond the ``flog`` text log and visual
 widgets (SNR meter ``waterfall.cpp:922-932``, volume/peak meters,
@@ -17,13 +18,20 @@ Typical wiring::
     thr.add(block_len)                    # per dispatched block
     m.gauge("vfo0.snr_db").set(snr)
     print(m.to_json())
+
+`span` marks a layer of the program as a host range on the profiler's
+clock, for a trace taken with ``torch.profiler``; with no profiler
+recording it costs one flag check.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import time
 from dataclasses import dataclass, field
+
+from torch.autograd import profiler as _autograd_profiler
 
 
 @dataclass
@@ -145,3 +153,20 @@ class MetricsRegistry:
 
     def to_json(self) -> str:
         return json.dumps(self.snapshot(), allow_nan=False)
+
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str, args=None):
+    """A host range ``name`` around the ``with`` block while a
+    ``torch.profiler`` profile records (``record_function``; ``args``,
+    made a string, is its argument, such as the id of the call that the
+    spans share), nested by time in the range around it on its thread.
+    Otherwise one shared no-op: no allocation and no dispatcher call,
+    since ``record_function`` costs several microseconds a use even with
+    no profiler recording."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return _autograd_profiler.record_function(
+        name, None if args is None else str(args))

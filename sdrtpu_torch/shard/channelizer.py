@@ -37,6 +37,7 @@ from ..kernels.chunks import chunk_poly
 from ..kernels.fir import Fir, correlate_valid_bank
 from ..kernels.fused_channelizer import FusedChannelizerStage
 from ..kernels.resample import RationalResampler
+from ..metrics import span
 
 _TWO_PI = 2.0 * np.pi
 _FINE = 1024
@@ -668,19 +669,21 @@ class Channelizer(StreamOp):
         return st
 
     def __call__(self, state, x):
-        st = dict(state)
-        if self.fused is None:
-            st["mixer"], y = self.mixer(state["mixer"], x)  # (C, n)
-            st["resamp"], y = self.resampler(state["resamp"], y)
-        else:
-            st["fused"], y = self.fused(state["fused"], x)  # (C, n/M1)
-            new_rest = []
-            for s, rst in zip(self.rest_stages, state["rest"]):
-                rst, y = s(rst, y)
-                new_rest.append(rst)
-            st["rest"] = tuple(new_rest)
-            if self.resampler.resamp is not None and not self._fused_complete:
-                st["poly"], y = self.resampler.resamp(state["poly"], y)
-        if self.lpf:
-            st["lpf"], y = self.lpf(state["lpf"], y)
-        return st, y
+        with span("sdrtpu.channelizer"):
+            st = dict(state)
+            if self.fused is None:
+                st["mixer"], y = self.mixer(state["mixer"], x)  # (C, n)
+                st["resamp"], y = self.resampler(state["resamp"], y)
+            else:
+                st["fused"], y = self.fused(state["fused"], x)  # (C, n/M1)
+                new_rest = []
+                for s, rst in zip(self.rest_stages, state["rest"]):
+                    rst, y = s(rst, y)
+                    new_rest.append(rst)
+                st["rest"] = tuple(new_rest)
+                if (self.resampler.resamp is not None
+                        and not self._fused_complete):
+                    st["poly"], y = self.resampler.resamp(state["poly"], y)
+            if self.lpf:
+                st["lpf"], y = self.lpf(state["lpf"], y)
+            return st, y
