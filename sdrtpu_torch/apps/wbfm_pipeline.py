@@ -17,6 +17,11 @@ Steady state (`scan_call`/`scan_repeat`), in sub-windows of blocks:
   block per call, so the front end runs once per block in a Python loop
   (`_front_window`) and the IF-rate back end once per sub-window.
 
+On the card the IF back end (demod, audio resampler, de-emphasis) is one
+CUDA graph per input shape (`graph.cuda_graph.GraphedStep`), captured on
+a shape's second pass and replayed from then on; its counters are
+``_if_graph.captures``, ``.replays`` and ``.eager_passes``.
+
 Spans (`metrics.span`, host ranges while ``torch.profiler`` records):
 ``sdrtpu.wbfm.call`` around `__call__`, ``sdrtpu.wbfm.scan_call`` around
 `scan_call` and `scan_repeat`, both with the pipeline's call count as
@@ -33,6 +38,7 @@ import torch
 
 from .. import resolve_device
 from ..graph.block import StreamOp, tree_map, tree_stack
+from ..graph.cuda_graph import GraphedStep
 from ..kernels.fftspec import SpectrumAnalyzer
 from ..kernels.iir import Deemphasis
 from ..kernels.resample import RationalResampler
@@ -83,6 +89,7 @@ class WbfmMultiVfoPipeline(StreamOp):
         # scalar initial state broadcasts over the (2, C, n) audio and
         # becomes (2, C, 1) after the first block
         self.deemph = Deemphasis(tau, audio_rate, device=dev)
+        self._if_graph = GraphedStep()
         n_if = self.channelizer.out_len(block_len)
         assert n_if % self.audio_resamp.block_multiple() == 0, (
             f"IF block {n_if} not a multiple of audio quantum "
@@ -148,12 +155,22 @@ class WbfmMultiVfoPipeline(StreamOp):
 
     def _if_back_end(self, st, state, y):
         """Demod, audio resampler and de-emphasis of the IF ``y`` (C, n),
-        their states into ``st``: the audio (2, C, n_af)."""
+        their states into ``st``: the audio (2, C, n_af).  On the card,
+        from a key's second pass on, one CUDA graph replay (`GraphedStep`)."""
         with span("sdrtpu.if_back_end", self.calls):
-            st["demod"], (stereo, _) = self.demod(state["demod"], y)
-            st["audio"], a = self.audio_resamp(state["audio"], stereo)
-            st["deemph"], a = self.deemph(state["deemph"], a)
+            (st["demod"], st["audio"], st["deemph"]), a = self._if_graph(
+                self._if_chain,
+                (state["demod"], state["audio"], state["deemph"]), y)
         return a
+
+    def _if_chain(self, states, y):
+        """The IF back end's eager body: ``(demod, audio, deemph)``
+        states and the IF -> their new states and the audio."""
+        demod, audio, deemph = states
+        demod, (stereo, _) = self.demod(demod, y)
+        audio, a = self.audio_resamp(audio, stereo)
+        deemph, a = self.deemph(deemph, a)
+        return (demod, audio, deemph), a
 
     # -- batched steady state ------------------------------------------------
 

@@ -193,13 +193,17 @@ def _plan_corr_nfft(L: int, T: int) -> int:
     return best[1]
 
 
-def fft_correlate_valid(x: torch.Tensor, taps) -> torch.Tensor:
+def fft_correlate_valid(x: torch.Tensor, taps,
+                        spectra: dict | None = None) -> torch.Tensor:
     """`correlate_valid` (stride 1) via FFT overlap-save.
 
     Correlation is convolution with reversed taps:
     ``out = IFFT(FFT(x_pad) * FFT(reverse(taps)))[T-1 : T-1+span]``, the
     tap spectrum built on the host in float64.  Long inputs are cut into
-    overlap-save chunks of the planned size.
+    overlap-save chunks of the planned size.  ``spectra``, a dict the
+    caller keeps for these taps, holds each spectrum on the device per
+    ``(nfft, device)``: a host copy on every call would wait for the
+    device's queue, and cannot be captured in a CUDA graph.
     """
     taps = np.asarray(taps)
     L = int(x.shape[-1])
@@ -216,22 +220,27 @@ def fft_correlate_valid(x: torch.Tensor, taps) -> torch.Tensor:
         chunks = torch.cat(
             [rows[..., q : q + P, :] for q in range(Q)], dim=-1
         )[..., :nfft]
-        y = _fft_corr_padded(chunks, taps, nfft)  # (..., P, valid)
+        y = _fft_corr_padded(chunks, taps, nfft, spectra)  # (..., P, valid)
         return y.reshape(lead + (P * valid,))[..., :span]
-    return _fft_corr_padded(x, taps, nfft)
+    return _fft_corr_padded(x, taps, nfft, spectra)
 
 
-def _fft_corr_padded(x: torch.Tensor, taps: np.ndarray,
-                     nfft: int) -> torch.Tensor:
+def _fft_corr_padded(x: torch.Tensor, taps: np.ndarray, nfft: int,
+                     spectra: dict | None) -> torch.Tensor:
     """Circular correlation core: the ``L - T + 1`` valid outputs of the
     last axis zero-padded to ``nfft``."""
     L = int(x.shape[-1])
     T = int(taps.shape[0])
     span = L - T + 1
-    hf = np.fft.fft(taps[::-1].astype(np.complex128), nfft)
     complex_out = x.is_complex() or np.iscomplexobj(taps)
     xf = torch.fft.fft(_pad_last(x.to(torch.complex64), nfft - L))
-    hf_t = torch.as_tensor(hf.astype(np.complex64), device=x.device)
+    key = (nfft, x.device)
+    hf_t = None if spectra is None else spectra.get(key)
+    if hf_t is None:
+        hf = np.fft.fft(taps[::-1].astype(np.complex128), nfft)
+        hf_t = torch.as_tensor(hf.astype(np.complex64), device=x.device)
+        if spectra is not None:
+            spectra[key] = hf_t
     y = torch.fft.ifft(xf * hf_t)[..., T - 1 : T - 1 + span]
     return y if complex_out else y.real
 
@@ -261,6 +270,7 @@ class Fir(StreamOp):
         self._H = (torch.as_tensor(toeplitz_matrix(taps, 128),
                                    device=self.device)
                    if method == "mm" else None)
+        self._spectra = {}  # (nfft, device) -> the "fft" tap spectrum
 
     def init_state(self):
         return torch.zeros((self.ntaps - 1,), dtype=self.dtype,
@@ -274,7 +284,7 @@ class Fir(StreamOp):
         state = state.expand(x.shape[:-1] + (self.ntaps - 1,))
         ext = torch.cat([state, x], dim=-1)
         if self.method == "fft":
-            y = fft_correlate_valid(ext, self.taps)
+            y = fft_correlate_valid(ext, self.taps, self._spectra)
         elif self.method == "mm":
             y = matmul_correlate_valid(ext, self.taps, H=self._H)
         else:

@@ -13,6 +13,8 @@ recurrence.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -32,7 +34,7 @@ def first_order_recurrence(a, b: torch.Tensor, y0) -> torch.Tensor:
     terms stay bounded for ``|a| <= 1`` (no ``a^-k`` factor appears), and
     each output is a sum of log depth, so float32 does not drift over
     long blocks.  For a scalar ``a`` the composed ``A`` is a known power,
-    taken in float64 on the host.
+    taken in float64 on the host (`_powers`).
     """
     n = b.shape[-1]
     B = b.clone()
@@ -54,10 +56,20 @@ def first_order_recurrence(a, b: torch.Tensor, y0) -> torch.Tensor:
                 break
             B[..., off:] = B[..., :-off] * a_off + B[..., off:]
             off *= 2
-        A = torch.as_tensor(
-            (a ** (np.arange(n, dtype=np.float64) + 1.0)).astype(np.float32),
-            device=b.device)
+        A = _powers(a, n, b.device)
     return A * y0 + B
+
+
+@functools.cache
+def _powers(a: float, n: int, device) -> torch.Tensor:
+    """``a^(k+1)``, k < n, in float64 on the host, rounded to float32
+    and moved to ``device`` once per ``(a, n, device)``: a host copy on
+    every call would wait for the device's queue, and cannot be captured
+    in a CUDA graph.  Kept for the process, so a captured graph's read
+    of it stays valid."""
+    return torch.as_tensor(
+        (a ** (np.arange(n, dtype=np.float64) + 1.0)).astype(np.float32),
+        device=device)
 
 
 class Deemphasis(StreamOp):
@@ -90,6 +102,7 @@ class Deemphasis(StreamOp):
         self._ntaps = T
         self._H = torch.as_tensor(toeplitz_matrix(self._fir, 128),
                                   device=self.device)
+        self._decays = {}  # (n, device) -> the carry term's factors
 
     def init_state(self):
         shape = () if self.channels == 1 else (self.channels, 1)
@@ -107,13 +120,23 @@ class Deemphasis(StreamOp):
             y = matmul_correlate_valid(xpad, self._fir, H=self._H)
         else:
             y = correlate_valid(xpad, self._fir)
-        # carry term a^(n+1)*y0: nonzero only in the first T outputs
-        decay = np.zeros(n, np.float32)
-        m = min(T, n)
-        decay[:m] = (self._a ** (np.arange(m, dtype=np.float64) + 1.0)
-                     ).astype(np.float32)
-        y = y + torch.as_tensor(decay, device=x.device) * state
+        y = y + self._decay(n, x.device) * state
         return y[..., -1:], y
+
+    def _decay(self, n: int, device) -> torch.Tensor:
+        """The carry term's factors a^(k+1), k < n (nonzero only in the
+        first T), built in float64 on the host and moved to ``device``
+        once per ``n``: a host copy on every call would wait for the
+        device's queue, and cannot be captured in a CUDA graph."""
+        key = (n, device)
+        decay = self._decays.get(key)
+        if decay is None:
+            host = np.zeros(n, np.float32)
+            m = min(self._ntaps, n)
+            host[:m] = (self._a ** (np.arange(m, dtype=np.float64) + 1.0)
+                        ).astype(np.float32)
+            decay = self._decays[key] = torch.as_tensor(host, device=device)
+        return decay
 
 
 class DcBlocker(StreamOp):

@@ -84,7 +84,6 @@ class ShardedWbfmPipeline:
                                                  state["chan"])
         # IF boundary: each channel row's time spans, gathered
         y = all_gather(self.mesh, y, "time", dim=-1)
-        st["demod"], (stereo, _) = self.pipe.demod(state["demod"], y)
-        st["audio"], a = self.pipe.audio_resamp(state["audio"], stereo)
-        st["deemph"], a = self.pipe.deemph(state["deemph"], a)
+        # the unsharded pipeline's IF back end: its CUDA graph on the card
+        a = self.pipe._if_back_end(st, state, y)
         return st, a

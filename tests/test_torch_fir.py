@@ -96,6 +96,24 @@ def test_fir_streams_two_blocks(method):
         np.testing.assert_array_equal(st.numpy(), np.asarray(sj))
 
 
+@pytest.mark.parametrize("lengths", [(1000, 1000, 1000), (1000, 70000, 1000)],
+                         ids=["one-plan", "two-plans-in-turn"])
+def test_fir_fft_keeps_its_tap_spectrum(lengths):
+    """`Fir`'s "fft" method keeps the tap spectrum on the device per FFT
+    size; its outputs are the bits of `fft_correlate_valid` building the
+    spectrum at every call (70 000 takes the chunked plan)."""
+    top = tfir.Fir(PILOT, dtype=torch.complex64, method="fft", device="cpu")
+    st = top.init_state()
+    for n in lengths:
+        x = torch.as_tensor(_x((3, n), True))
+        ext = torch.cat([st.expand(3, -1), x], dim=-1)
+        st, y = top(st, x)
+        assert torch.equal(y, tfir.fft_correlate_valid(ext, PILOT))
+    assert sorted(k for k, _ in top._spectra) == sorted(
+        {tfir._plan_corr_nfft(n + len(PILOT) - 1, len(PILOT))
+         for n in lengths})
+
+
 def test_decimating_fir_streams_two_blocks():
     taps = jtaps.low_pass(100000.0, 50000.0, 2e6)
     jop = jfir.DecimatingFir(taps, 8)

@@ -22,6 +22,7 @@ from sdrtpu_torch.convert import state_from_jax, state_to_numpy  # noqa: E402
 from sdrtpu_torch.kernels.iir import DcBlocker as TDc  # noqa: E402
 from sdrtpu_torch.kernels.iir import Deemphasis as TDeemph  # noqa: E402
 from sdrtpu_torch.kernels.iir import first_order_recurrence as trec  # noqa: E402
+from sdrtpu_torch.kernels.fir import correlate_valid, matmul_correlate_valid  # noqa: E402
 
 RNG = np.random.default_rng(22)
 
@@ -84,6 +85,62 @@ def test_recurrence_long_block_does_not_drift():
                 torch.tensor(1.0)).numpy()
     assert np.isfinite(got2).all()
     np.testing.assert_allclose(got2, _loop64(a2, np.abs(x), 1.0), rtol=2e-5)
+
+
+@pytest.mark.parametrize("lengths", [(900, 900, 900), (900, 1500, 900)],
+                         ids=["one-length", "two-lengths-in-turn"])
+def test_recurrence_scalar_powers_are_kept_and_bit_equal(lengths):
+    """A scalar pole's powers ``a^(k+1)`` are built once per length and
+    kept on the device; the result is the bits of the powers built on
+    the host at every call (``A * y0`` plus the doubling scan)."""
+    from sdrtpu_torch.kernels.iir import _powers
+
+    a = float(np.float32(1.0) - np.float32(100.0 / 15000.0))
+    for n in lengths:
+        b = torch.as_tensor(RNG.standard_normal((2, n)).astype(np.float32))
+        y0 = torch.as_tensor(RNG.standard_normal((2, 1)).astype(np.float32))
+        A = torch.as_tensor((a ** (np.arange(n, dtype=np.float64) + 1.0)
+                             ).astype(np.float32))
+        want = A * y0 + trec(a, b, torch.zeros(()))
+        assert torch.equal(trec(a, b, y0), want)
+    for n in set(lengths):
+        assert _powers(a, n, b.device) is _powers(a, n, b.device)
+
+
+def _deemph_per_call_carry(d, state, x):
+    """`Deemphasis.__call__`'s FIR branch with the carry term built on
+    the host at every call, as before it was kept on the device."""
+    T, n = d._ntaps, x.shape[-1]
+    xpad = torch.cat([x.new_zeros(x.shape[:-1] + (T - 1,)), x], dim=-1)
+    if x.numel() >= d.mm_min_elements:
+        y = matmul_correlate_valid(xpad, d._fir, H=d._H)
+    else:
+        y = correlate_valid(xpad, d._fir)
+    decay = np.zeros(n, np.float32)
+    m = min(T, n)
+    decay[:m] = (d._a ** (np.arange(m, dtype=np.float64) + 1.0)
+                 ).astype(np.float32)
+    y = y + torch.as_tensor(decay, device=x.device) * state
+    return y[..., -1:], y
+
+
+@pytest.mark.parametrize("lengths", [(17, 17, 17), (60, 60), (2400, 2400),
+                                     (2400, 17, 2400, 60)],
+                         ids=["below-taps", "at-taps", "above-taps",
+                              "two-lengths-in-turn"])
+def test_deemphasis_cached_carry_is_bit_equal(lengths):
+    """50 us at 48 kHz: the 60-tap FIR form; (2, 8, n) rows as the
+    flagship's, so 2400 takes the matmul and the shorter blocks the
+    shift-and-add."""
+    td = TDeemph(50e-6, 48000.0, device="cpu")
+    assert td._ntaps == 60
+    st_new = st_old = td.init_state()
+    for n in lengths:
+        x = torch.as_tensor(RNG.standard_normal((2, 8, n)).astype(np.float32))
+        st_new, y_new = td(st_new, x)
+        st_old, y_old = _deemph_per_call_carry(td, st_old, x)
+        assert torch.equal(y_new, y_old) and torch.equal(st_new, st_old)
+    assert sorted(n for n, _ in td._decays) == sorted(set(lengths))
 
 
 def test_deemphasis_long_pole_streams():

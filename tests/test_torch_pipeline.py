@@ -132,6 +132,46 @@ def test_scan_call_from_a_shared_midstream_state():
     assert sr.shape == (2,) and bool(torch.isfinite(sr).all())
 
 
+def _if_back_end_before_graphs(self, st, state, y):
+    """The IF back end as it ran before `GraphedStep` dispatched it."""
+    st["demod"], (stereo, _) = self.demod(state["demod"], y)
+    st["audio"], a = self.audio_resamp(state["audio"], stereo)
+    st["deemph"], a = self.deemph(state["deemph"], a)
+    return a
+
+
+def _three_calls(tp, entry):
+    """The state and outputs of three calls of ``entry`` from rest; the
+    scans take 4 blocks in 2-block sub-windows."""
+    st, outs = tp.init_state(), []
+    for b in range(3):
+        if entry == "call":
+            st, out = tp(st, torch.as_tensor(X[b]))
+        elif entry == "scan_call":
+            st, out = tp.scan_call(st, torch.as_tensor(X[b:b + 4]))
+        else:
+            st, out = tp.scan_repeat(st, torch.as_tensor(X[b]), 4)
+        outs.append(out)
+    return st, outs
+
+
+@pytest.mark.parametrize("entry", ["call", "scan_call", "scan_repeat"])
+def test_if_back_end_on_the_cpu_is_eager_and_unchanged(entry):
+    """Every entry gives the bits of the body the IF back end ran before
+    it dispatched to a graph, and on the CPU every pass is eager."""
+    now = _pipes(sub_samples=2 * BLOCK)[1]
+    before = _pipes(sub_samples=2 * BLOCK)[1]
+    before._if_back_end = _if_back_end_before_graphs.__get__(before)
+    got, want = [], []
+    tree_map(got.append, _three_calls(now, entry))
+    tree_map(want.append, _three_calls(before, entry))
+    assert len(got) == len(want)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    passes = 3 if entry == "call" else 6
+    g = now._if_graph
+    assert (g.eager_passes, g.captures, g.replays) == (passes, 0, 0)
+
+
 def test_default_device_needs_a_card():
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is valid")

@@ -299,6 +299,41 @@ def test_fractional_ratio_raises():
         ShardedWbfmPipeline(offs, fs, block, make_mesh(1, 1, device="cpu"))
 
 
+def test_one_rank_flagship_runs_the_pipelines_if_back_end():
+    """The sharded flagship's IF back end is the unsharded pipeline's
+    (its `GraphedStep`, eager on the CPU): the bits of the demod,
+    resampler and de-emphasis called one after another."""
+    from sdrtpu_torch.graph.block import tree_map
+    from sdrtpu_torch.shard.flagship import ShardedWbfmPipeline
+    from sdrtpu_torch.shard.mesh import make_mesh
+
+    def before(self, st, state, y):
+        st["demod"], (stereo, _) = self.demod(state["demod"], y)
+        st["audio"], a = self.audio_resamp(state["audio"], stereo)
+        st["deemph"], a = self.deemph(state["deemph"], a)
+        return a
+
+    block, n_blocks = 2000, 3
+    offs = np.linspace(-0.35, 0.35, 4) * FS_WB
+    x = _flagship_signal(FS_WB, offs, n_blocks * block)
+    mesh = make_mesh(1, 1, device="cpu")
+    now = ShardedWbfmPipeline(offs, FS_WB, block, mesh)
+    old = ShardedWbfmPipeline(offs, FS_WB, block, mesh)
+    old.pipe._if_back_end = before.__get__(old.pipe)
+    st_n = st_o = now.init_state()
+    for blk in x.reshape(n_blocks, block):
+        st_n, a_n = now(st_n, blk)
+        st_o, a_o = old(st_o, blk)
+        assert a_n.shape == (2, 4, 48) and torch.equal(a_n, a_o)
+
+    def same(p, q):
+        assert p.shape == q.shape and torch.equal(p, q)
+
+    for k in ("demod", "audio", "deemph"):
+        tree_map(same, st_n[k], st_o[k])
+    assert now.pipe._if_graph.eager_passes == n_blocks
+
+
 def test_one_rank_mesh_is_the_plain_chain():
     """A (1, 1) mesh runs without torch.distributed: every collective is a
     no-op and the sharded channelizer is the plain chain."""
