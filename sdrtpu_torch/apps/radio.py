@@ -17,6 +17,9 @@
 | dsb  | 24 kHz  | 4.6 kHz   | off         |
 | cw   | 3 kHz   | 200 Hz    | off         |
 | raw  | audio   | audio     | off         |
+
+Each call is the span ``sdrtpu.rx.radio`` (`metrics.span`), its mode
+the argument.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ from ..kernels.iir import Deemphasis
 from ..kernels.resample import RationalResampler
 from ..kernels.squelch import NoiseBlanker, PowerSquelch
 from ..kernels.wfm import BroadcastFm
+from ..metrics import span
 
 MODE_INFO = {
     "wfm": dict(if_rate=250000.0, bandwidth=150000.0, deemp=50e-6),
@@ -144,29 +148,30 @@ class RadioChain(StreamOp):
         return self.resamp.out_len(n)
 
     def __call__(self, state, x):
-        st = dict(state)
-        if self.nb:
-            st["nb"], x = self.nb(state["nb"], x)
-        if self.squelch:
-            st["sq"], x = self.squelch(state["sq"], x)
-        if self.fmnr:
-            st["fmnr"], x = self.fmnr(state["fmnr"], x)
+        with span("sdrtpu.rx.radio", self.mode):
+            st = dict(state)
+            if self.nb:
+                st["nb"], x = self.nb(state["nb"], x)
+            if self.squelch:
+                st["sq"], x = self.squelch(state["sq"], x)
+            if self.fmnr:
+                st["fmnr"], x = self.fmnr(state["fmnr"], x)
 
-        if self.mode == "wfm":
-            st["demod"], (audio, _rds) = self.demod(state["demod"], x)
-        elif self.mode == "raw":
-            audio = torch.stack([x.real, x.imag])
-        else:
-            st["demod"], mono = self.demod(state["demod"], x)
-            audio = torch.stack([mono, mono])
+            if self.mode == "wfm":
+                st["demod"], (audio, _rds) = self.demod(state["demod"], x)
+            elif self.mode == "raw":
+                audio = torch.stack([x.real, x.imag])
+            else:
+                st["demod"], mono = self.demod(state["demod"], x)
+                audio = torch.stack([mono, mono])
 
-        if self.ctcss:
-            st["ctcss"], (audio, _tone) = self.ctcss(state["ctcss"], audio)
-        st["resamp"], a = self.resamp(state["resamp"],
-                                      audio.to(torch.complex64))
-        a = a.real
-        if self.hpf:
-            st["hpf"], a = self.hpf(state["hpf"], a)
-        if self.deemph:
-            st["deemph"], a = self.deemph(state["deemph"], a)
-        return st, a
+            if self.ctcss:
+                st["ctcss"], (audio, _tone) = self.ctcss(state["ctcss"], audio)
+            st["resamp"], a = self.resamp(state["resamp"],
+                                          audio.to(torch.complex64))
+            a = a.real
+            if self.hpf:
+                st["hpf"], a = self.hpf(state["hpf"], a)
+            if self.deemph:
+                st["deemph"], a = self.deemph(state["deemph"], a)
+            return st, a

@@ -9,6 +9,12 @@
   sinks.
 - `BlockFramer`: accumulates reads of any size into the block quantum.
 
+Spans (`metrics.span`, host ranges while ``torch.profiler`` records):
+``sdrtpu.rx.frontend`` around `IQFrontend.__call__`; inside it
+``sdrtpu.waterfall``, ``sdrtpu.channelizer`` (one a fused group),
+``sdrtpu.rx.ddc`` around each unfused VFO's mixer and resampler, and
+``sdrtpu.rx.radio`` around each `RadioChain` call (argument: its mode).
+
 There is no compiled program: a step is the frontend call, eager.
 Retuning swaps state tables; switching a demodulator swaps one `Vfo`
 object and its state subtree.
@@ -35,6 +41,7 @@ from ..kernels.fftspec import SpectrumAnalyzer
 from ..kernels.iir import DcBlocker
 from ..kernels.mixer import FreqXlator, TunableXlator
 from ..kernels.resample import IntegerDecimator, RationalResampler
+from ..metrics import span
 from ..shard.channelizer import Channelizer
 from .radio import RadioChain
 
@@ -132,8 +139,9 @@ class Vfo(StreamOp):
 
     def __call__(self, state, x):
         st = dict(state)
-        st["xl"], y = self.xlator(state["xl"], x)
-        st["ddc"], y = self.ddc(state["ddc"], y)
+        with span("sdrtpu.rx.ddc"):
+            st["xl"], y = self.xlator(state["xl"], x)
+            st["ddc"], y = self.ddc(state["ddc"], y)
         st["radio"], audio = self.radio(state["radio"], y)
         if self.emit_iq:
             return st, (audio, y)
@@ -269,30 +277,31 @@ class IQFrontend(StreamOp):
         return st
 
     def __call__(self, state, x):
-        st = {"pre": state["pre"], "dc": state["dc"], "vfos": {}}
-        if self.predecim:
-            st["pre"], x = self.predecim(state["pre"], x)
-        if self.dc:
-            st["dc"], x = self.dc(state["dc"], x)
-        spec = None
-        if self.spectrum:
-            _, spec = self.spectrum((), x)
-        audios = {}
-        grouped = self._grouped_names()
-        if self._groups:
-            st["chan"] = {}
-            for if_rate, (names, chan) in self._groups.items():
-                key = f"{if_rate:.0f}"
-                st["chan"][key], rows = chan(state["chan"][key], x)
-                for i, name in enumerate(names):
-                    rst, audios[name] = self.vfos[name].radio(
-                        state["vfos"][name]["radio"], rows[i])
-                    st["vfos"][name] = {"radio": rst}
-        for name, vfo in self.vfos.items():
-            if name in grouped:
-                continue
-            st["vfos"][name], audios[name] = vfo(state["vfos"][name], x)
-        return st, (audios, spec)
+        with span("sdrtpu.rx.frontend"):
+            st = {"pre": state["pre"], "dc": state["dc"], "vfos": {}}
+            if self.predecim:
+                st["pre"], x = self.predecim(state["pre"], x)
+            if self.dc:
+                st["dc"], x = self.dc(state["dc"], x)
+            spec = None
+            if self.spectrum:
+                _, spec = self.spectrum((), x)
+            audios = {}
+            grouped = self._grouped_names()
+            if self._groups:
+                st["chan"] = {}
+                for if_rate, (names, chan) in self._groups.items():
+                    key = f"{if_rate:.0f}"
+                    st["chan"][key], rows = chan(state["chan"][key], x)
+                    for i, name in enumerate(names):
+                        rst, audios[name] = self.vfos[name].radio(
+                            state["vfos"][name]["radio"], rows[i])
+                        st["vfos"][name] = {"radio": rst}
+            for name, vfo in self.vfos.items():
+                if name in grouped:
+                    continue
+                st["vfos"][name], audios[name] = vfo(state["vfos"][name], x)
+            return st, (audios, spec)
 
 
 def _to_host(t):

@@ -1,7 +1,8 @@
 """The port's spans (`sdrtpu_torch.metrics.span`): a shared no-op with no
 profiler, and under ``torch.profiler`` host ranges at the pipeline's
-entries, sub-windows, channelizer, IF back end and waterfall, nested as
-the layers are, with every output bit-equal to a run without them.
+entries, sub-windows, channelizer, IF back end and waterfall, and at the
+receiver's frontend, per-VFO DDCs and radio chains, nested as the layers
+are, with every output bit-equal to a run without them.
 
 The pipeline is the benchmark's flagship cut as its CPU tests cut it:
 two VFOs off 10 Msps, an 8192-bin waterfall, 500 000-sample blocks, and
@@ -16,7 +17,7 @@ from torch.autograd import profiler as autograd_profiler
 from torch.profiler import ProfilerActivity, profile
 
 from sdrtpu_torch import metrics
-from sdrtpu_torch.apps.receiver import IQFrontend, VfoConfig
+from sdrtpu_torch.apps.receiver import IQFrontend, Receiver, VfoConfig
 from sdrtpu_torch.apps.wbfm_pipeline import WbfmMultiVfoPipeline
 from sdrtpu_torch.graph.checkpoint import tree_flatten
 
@@ -128,7 +129,84 @@ def test_iq_frontend_step_spans_its_channelizer():
     fe.bind(block)
     x = torch.zeros(block, dtype=torch.complex64)
     _, spans = traced(lambda: fe(fe.init_state(), x))
-    assert [n for _, _, n in spans] == ["sdrtpu.waterfall",
-                                        "sdrtpu.channelizer"]
-    assert tree(spans) == [("sdrtpu.waterfall", []),
-                           ("sdrtpu.channelizer", [])]
+    assert tree(spans) == [("sdrtpu.rx.frontend", [
+        ("sdrtpu.waterfall", []), ("sdrtpu.channelizer", []),
+        ("sdrtpu.rx.radio", []), ("sdrtpu.rx.radio", [])])]
+
+
+# the mixed receiver cut small: a fused WFM pair, and an NFM and a CW VFO
+# each alone at its IF rate, so each keeps its own DDC
+RX_VFOS = {"w1": (200e3, "wfm"), "w2": (-250e3, "wfm"), "n": (100e3, "nfm"),
+           "c": (-400e3, "cw")}
+RX_LAYERS = ("sdrtpu.waterfall", "sdrtpu.channelizer", "sdrtpu.rx.ddc",
+             "sdrtpu.rx.radio")
+
+
+@pytest.fixture(scope="module")
+def rx():
+    fe = IQFrontend(1e6, {n: VfoConfig(o, m) for n, (o, m) in RX_VFOS.items()},
+                    fft_size=1024, fft_rate=125.0, device="cpu")
+    block = 2 * fe.block_multiple()
+    g = torch.Generator().manual_seed(17)
+    x = torch.view_as_complex(torch.randn(2, block, 2, generator=g) * 0.1)
+    return fe, x
+
+
+def push(fe, xs):
+    """Every block through a new `Receiver`'s `push`: each sink's
+    outputs."""
+    audio = {n: [] for n in RX_VFOS}
+    spec = []
+    Receiver(fe, block_len=xs.shape[-1],
+             audio_sinks={n: audio[n].append for n in audio},
+             spectrum_sink=spec.append).push(xs.reshape(-1).numpy())
+    return audio, spec
+
+
+def test_receiver_spans_nest_as_its_layers(rx):
+    fe, xs = rx
+    _, spans = traced(lambda: push(fe, xs))
+    step = [("sdrtpu.waterfall", []), ("sdrtpu.channelizer", []),
+            ("sdrtpu.rx.radio", []), ("sdrtpu.rx.radio", []),
+            ("sdrtpu.rx.ddc", []), ("sdrtpu.rx.radio", []),
+            ("sdrtpu.rx.ddc", []), ("sdrtpu.rx.radio", [])]
+    assert tree(spans) == [("sdrtpu.rx.frontend", step)] * len(xs)
+    assert siblings_apart(spans, RX_LAYERS)
+
+
+def test_radio_spans_carry_their_mode(monkeypatch, rx):
+    from sdrtpu_torch.apps import radio
+
+    fe, xs = rx
+    opened = []
+
+    def recording(name, args=None):
+        opened.append((name, args))
+        return metrics.span(name, args)
+
+    monkeypatch.setattr(radio, "span", recording)
+    fe(fe.init_state(), xs[0])
+    assert opened == [("sdrtpu.rx.radio", m)
+                      for m in ("wfm", "wfm", "nfm", "cw")]
+
+
+def test_receiver_opens_no_span_without_the_profiler(monkeypatch, rx):
+    def refuse(*a, **k):
+        raise AssertionError("record_function with no profiler")
+
+    monkeypatch.setattr(autograd_profiler, "record_function", refuse)
+    fe, xs = rx
+    audio, spec = push(fe, xs)
+    assert len(spec) == len(xs) and all(len(a) == len(xs)
+                                        for a in audio.values())
+
+
+def test_receiver_outputs_bit_equal_with_the_profiler_on(rx):
+    fe, xs = rx
+    plain = push(fe, xs)
+    on, spans = traced(lambda: push(fe, xs))
+    assert spans
+    (want, nest), (got, nest_on) = tree_flatten(plain), tree_flatten(on)
+    assert nest == nest_on
+    for a, b in zip(want, got, strict=True):
+        assert np.array_equal(a, b)
