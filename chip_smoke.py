@@ -1274,8 +1274,8 @@ def phase_receiver(card: str, rx_plans: dict,
     Launch counts, worked out from the code: each block launches
     chunk_poly once per fused group (2) and agc_scan once per AGC chain
     (am, usb, cw: 3; 2 while the am VFO runs nfm); `set_mode` runs the
-    new chain once on a zero block (2 more chunk_poly; 2 agc_scan after
-    the switch to nfm, 3 after the switch back).  mix_decimate and
+    switched VFO alone twice on zeros (no chunk_poly; no agc_scan for the
+    new nfm chain, 2 for the cached am chain's two replays).  mix_decimate and
     pll_scan are not on this path (the radio's pilot mode is
     "normalized")."""
     rx, audio, spec = build_receiver("cuda")
@@ -1311,8 +1311,8 @@ def phase_receiver(card: str, rx_plans: dict,
     rx.flush()
     torch.cuda.synchronize()
     launches = {name: fn.launches for name, fn in counters.items()}
-    want = expected_launches(chunk_poly=2 * (RX_BLOCKS + 2),
-                             agc_scan=3 * (RX_BLOCKS - 2) + 2 * 2 + 2 + 3)
+    want = expected_launches(chunk_poly=2 * RX_BLOCKS,
+                             agc_scan=3 * (RX_BLOCKS - 2) + 2 * 2 + 2)
     if launches != want:
         raise AssertionError(f"receiver path launched {launches}, want {want}")
 
@@ -4362,8 +4362,8 @@ def phase_remote(card: str) -> dict:
         launches = {name: fn.launches for name, fn in counters.items()}
         n_nfm = REMOTE_AM_AT - REMOTE_NFM_AT
         want = expected_launches(
-            chunk_poly=2 * (REMOTE_BLOCKS + 2),
-            agc_scan=3 * (REMOTE_BLOCKS - n_nfm) + 2 * n_nfm + 2 + 3)
+            chunk_poly=2 * REMOTE_BLOCKS,
+            agc_scan=3 * (REMOTE_BLOCKS - n_nfm) + 2 * n_nfm + 2)
         if launches != want:
             raise AssertionError(f"remote: launched {launches}, want {want}")
         wire = wire_checks("remote", packets, cap, block)

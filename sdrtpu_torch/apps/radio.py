@@ -19,7 +19,11 @@
 | raw  | audio   | audio     | off         |
 
 Each call is the span ``sdrtpu.rx.radio`` (`metrics.span`), its mode
-the argument.
+the argument.  Inside it the chain's body (`RadioChain._step`) runs
+through the chain's own `graph.cuda_graph.GraphedStep`: eagerly on the
+CPU and on an input key's first pass on the card, then as one captured
+CUDA graph per key, replayed; its counters are ``_graph.captures``,
+``.replays`` and ``.eager_passes``.
 """
 
 from __future__ import annotations
@@ -28,7 +32,8 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from ..graph.block import StreamOp
+from ..graph.block import StreamOp, tree_map
+from ..graph.cuda_graph import GraphedStep
 from ..kernels import taps as tapsmod
 from ..kernels.analog import Am, Cw, Fm, Ssb
 from ..kernels.ctcss import CtcssSquelch
@@ -114,8 +119,10 @@ class RadioChain(StreamOp):
                     if high_pass else None)
         if deemphasis == "default":
             deemphasis = info["deemp"]
-        self.deemph = (Deemphasis(deemphasis, audio_rate, device=dev)
+        self.deemph = (Deemphasis(deemphasis, audio_rate, channels=2,
+                                  device=dev)
                        if deemphasis else None)
+        self._graph = GraphedStep()
 
     @staticmethod
     def ctcss_tone_detected(state) -> int | None:
@@ -133,14 +140,20 @@ class RadioChain(StreamOp):
         return m
 
     def init_state(self):
+        """The chain's state, its AF stages' carries in the stereo shape
+        that a pass leaves them in, so that every pass has one input key
+        (one graph on the card)."""
+        def stereo(tree):
+            return tree_map(lambda t: t.expand(2, *t.shape).clone(), tree)
+
         return {
             "nb": self.nb.init_state() if self.nb else (),
             "sq": self.squelch.init_state() if self.squelch else (),
             "fmnr": self.fmnr.init_state() if self.fmnr else (),
             "ctcss": self.ctcss.init_state() if self.ctcss else (),
             "demod": self.demod.init_state() if self.demod else (),
-            "resamp": self.resamp.init_state(),
-            "hpf": self.hpf.init_state() if self.hpf else (),
+            "resamp": stereo(self.resamp.init_state()),
+            "hpf": stereo(self.hpf.init_state()) if self.hpf else (),
             "deemph": self.deemph.init_state() if self.deemph else (),
         }
 
@@ -149,29 +162,34 @@ class RadioChain(StreamOp):
 
     def __call__(self, state, x):
         with span("sdrtpu.rx.radio", self.mode):
-            st = dict(state)
-            if self.nb:
-                st["nb"], x = self.nb(state["nb"], x)
-            if self.squelch:
-                st["sq"], x = self.squelch(state["sq"], x)
-            if self.fmnr:
-                st["fmnr"], x = self.fmnr(state["fmnr"], x)
+            return self._graph(self._step, state, x)
 
-            if self.mode == "wfm":
-                st["demod"], (audio, _rds) = self.demod(state["demod"], x)
-            elif self.mode == "raw":
-                audio = torch.stack([x.real, x.imag])
-            else:
-                st["demod"], mono = self.demod(state["demod"], x)
-                audio = torch.stack([mono, mono])
+    def _step(self, state, x):
+        """The chain's body: IF chain, demodulator, CTCSS, audio
+        resampler, HPF, de-emphasis."""
+        st = dict(state)
+        if self.nb:
+            st["nb"], x = self.nb(state["nb"], x)
+        if self.squelch:
+            st["sq"], x = self.squelch(state["sq"], x)
+        if self.fmnr:
+            st["fmnr"], x = self.fmnr(state["fmnr"], x)
 
-            if self.ctcss:
-                st["ctcss"], (audio, _tone) = self.ctcss(state["ctcss"], audio)
-            st["resamp"], a = self.resamp(state["resamp"],
-                                          audio.to(torch.complex64))
-            a = a.real
-            if self.hpf:
-                st["hpf"], a = self.hpf(state["hpf"], a)
-            if self.deemph:
-                st["deemph"], a = self.deemph(state["deemph"], a)
-            return st, a
+        if self.mode == "wfm":
+            st["demod"], (audio, _rds) = self.demod(state["demod"], x)
+        elif self.mode == "raw":
+            audio = torch.stack([x.real, x.imag])
+        else:
+            st["demod"], mono = self.demod(state["demod"], x)
+            audio = torch.stack([mono, mono])
+
+        if self.ctcss:
+            st["ctcss"], (audio, _tone) = self.ctcss(state["ctcss"], audio)
+        st["resamp"], a = self.resamp(state["resamp"],
+                                      audio.to(torch.complex64))
+        a = a.real
+        if self.hpf:
+            st["hpf"], a = self.hpf(state["hpf"], a)
+        if self.deemph:
+            st["deemph"], a = self.deemph(state["deemph"], a)
+        return st, a

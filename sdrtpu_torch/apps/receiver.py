@@ -15,9 +15,12 @@ Spans (`metrics.span`, host ranges while ``torch.profiler`` records):
 ``sdrtpu.rx.ddc`` around each unfused VFO's mixer and resampler, and
 ``sdrtpu.rx.radio`` around each `RadioChain` call (argument: its mode).
 
-There is no compiled program: a step is the frontend call, eager.
-Retuning swaps state tables; switching a demodulator swaps one `Vfo`
-object and its state subtree.
+A step is the frontend call.  Each VFO's radio chain replays one
+captured CUDA graph per input key on the card (`RadioChain`, its own
+`graph.cuda_graph.GraphedStep`); the waterfall, the channelizers and the
+per-VFO DDCs around them run eagerly.  Retuning swaps state tables;
+switching a demodulator swaps one `Vfo` object and its state subtree,
+and the new chain captures its own graph.
 """
 
 from __future__ import annotations
@@ -315,11 +318,12 @@ class Receiver:
     ``spectrum_sink``: callable(db (frames, fft) float32 numpy).
     ``baseband_sinks``: callables fed every whole input block.
     ``scan_batch`` > 1 hands that many blocks to the frontend's
-    ``scan_call`` per dispatch.  It brings no gain here: with no captured
-    (CUDA-graph) step, a batch is a Python loop of the same launches plus
-    a host stack of the blocks and of the outputs, and it measured no
-    faster than ``scan_batch=1`` on an H100.  It is kept for parity of
-    the signature and of the batched = single results; leave it at 1.
+    ``scan_call`` per dispatch.  It brings no gain here: only the radio
+    chains replay captured (CUDA-graph) steps, so a batch is a Python
+    loop of the same calls plus a host stack of the blocks and of the
+    outputs, and it measured no faster than ``scan_batch=1`` on an H100
+    (with every launch eager).  It is kept for parity of the signature
+    and of the batched = single results; leave it at 1.
     ``async_fetch``: number of worker threads that copy results to the
     host while `push` goes on dispatching (one emitter thread delivers
     them to the sinks in order); ``"auto"`` sizes the pool at `warmup`
@@ -443,12 +447,12 @@ class Receiver:
             cache[(name, old.cfg.mode, old.cfg.bandwidth)] = old
             want = (name, mode, new_bw)
             new = cache.get(want)
+            inner = self.block_len // fe.decimation
             if new is None:
                 cfg = dataclasses.replace(old.cfg, mode=mode,
                                           bandwidth=new_bw)
                 new = Vfo(cfg, fe.effective_samplerate, old.radio.audio_rate,
                           emit_iq=old.emit_iq, device=self.device)
-                inner = self.block_len // fe.decimation
                 assert inner % new.block_multiple() == 0, (
                     f"block_len {self.block_len} incompatible with mode "
                     f"{mode} (quantum {new.block_multiple()})")
@@ -465,10 +469,17 @@ class Receiver:
             st["vfos"] = {**st["vfos"], name: vst}
             self._state = st
             self._warmed = False
-        # run the new chain once now (tables, FFT plans) so the next push
-        # does not stall; the step is functional, so dropping its result
-        # leaves the receiver's state untouched
-        self._step(self._state, np.zeros(self.block_len, np.complex64))
+            # run the new VFO twice on zeros now (tables and FFT plans on
+            # the first pass; on the card its chain's graph is captured
+            # on the second), so the next push does not stall.  The
+            # passes are functional and their results dropped; they hold
+            # the lock, as a push does, since a push replays the same
+            # graphs of the cached chains
+            zeros = torch.zeros(inner, dtype=torch.complex64,
+                                device=self.device)
+            with torch.inference_mode():
+                warm, _ = new(vst, zeros)
+                new(warm, zeros)
         return time.perf_counter() - t0
 
     def save_checkpoint(self, path: str) -> None:
@@ -556,8 +567,8 @@ class Receiver:
         """Run the step ahead of live data and put the state back, so
         tables, FFT plans and kernels exist before the first `push`.
 
-        Two steps: the first from the init-state shapes, the second from
-        the steady shapes (broadcast IIR carries).  With
+        Two steps: on the card each radio chain runs eagerly on the
+        first and captures its graph on the second.  With
         ``async_fetch="auto"`` it then times a step with its whole
         payload (every audio leaf and the spectrum) fetched, median of 3,
         and sizes the pool as ``ceil(time / block interval) + 1`` within

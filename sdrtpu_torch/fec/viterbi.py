@@ -30,6 +30,7 @@ import torch
 
 from .. import _build, resolve_device
 from ..graph.block import StreamOp
+from ..graph.cuda_graph import count_launches
 
 CCSDS_POLY_A = 0o171  # 0x79
 CCSDS_POLY_B = 0o133  # 0x5B
@@ -169,7 +170,7 @@ def _viterbi_launch(fn, sym, exp_prev, prev, prev_bit, count=True):
                 bits.data_ptr(), metrics.data_ptr(), rows, n, K, R, stream)
     if rc != 0:
         raise RuntimeError(f"viterbi_decode: CUDA launch failed (error {rc})")
-    viterbi_decode.launches += count
+    count_launches(viterbi_decode, count)
     return bits, metrics
 
 

@@ -19,11 +19,23 @@ state leaves are packed in the input buffer as in the output buffer, so
 when the caller passes back exactly the views of the last replay (the
 steady state), one copy moves the whole state in; otherwise each tensor
 is copied, such as a state another function replaced between calls.
+
+A hand kernel's wrapper counts its launches in its ``launches``
+attribute (`count_launches`), and a replay runs no Python: while a
+thread captures, the launches it counts go to the graph's tally instead
+(the capture ran nothing on the card), and each replay adds the tally,
+so a counter counts the kernels the card runs.  Other threads' launches
+go to the counters as ever.
+
+One lock serialises every `GraphedStep` call on the card: two threads
+that replay one graph would interleave their copies into its static
+inputs, and captures share PyTorch's capture stream and the gc switch.
 """
 
 from __future__ import annotations
 
 import gc
+import threading
 from collections import OrderedDict
 
 import torch
@@ -32,6 +44,19 @@ from .block import tree_map
 
 _ALIGN = 16  # bytes: each tensor of a flat buffer starts on a multiple
 _MAX_KEYS = 4  # graphs kept, the keys used last (a cell uses one)
+_LOCK = threading.RLock()  # held by every GraphedStep call on the card
+_capturing = threading.local()  # .tally: {wrapper: launches} of a capture
+
+
+def count_launches(fn, n: int = 1) -> None:
+    """Count ``n`` launches of the hand kernel wrapper ``fn`` in its
+    ``launches`` attribute, or, while this thread captures a graph, in
+    the graph's tally, which each replay adds."""
+    tally = getattr(_capturing, "tally", None)
+    if tally is None:
+        fn.launches += n
+    elif n:
+        tally[fn] = tally.get(fn, 0) + n
 
 
 def _leaves(tree) -> list:
@@ -77,6 +102,7 @@ class _Captured:
         # so it stays off until the capture ends
         gc_was_on = gc.isenabled()
         gc.disable()
+        _capturing.tally = {}
         try:
             with torch.cuda.graph(self.graph,
                                   capture_error_mode="thread_local"):
@@ -88,6 +114,8 @@ class _Captured:
                 for view, t in zip(_views(self.out, self.out_specs), got):
                     view.copy_(t)
         finally:
+            self.launched = list(_capturing.tally.items())
+            _capturing.tally = None
             if gc_was_on:
                 gc.enable()
         self.template = tree_map(lambda _: 0, res)
@@ -104,6 +132,8 @@ class _Captured:
             for view, t in zip(self.in_views, leaves):
                 view.copy_(t)
         self.graph.replay()
+        for fn, n in self.launched:
+            fn.launches += n
         buf = self.out.clone()
         views = _views(buf, self.out_specs)
         if self.packed_alike:
@@ -119,7 +149,8 @@ class GraphedStep:
 
     Counters: ``captures``, ``replays`` (every call that ran a graph, the
     capturing call included) and ``eager_passes``; in a steady state on
-    the card, ``replays`` grows by one a call.
+    the card, ``replays`` grows by one a call.  Safe to call from several
+    threads: on the card each call holds the module's lock.
     """
 
     def __init__(self):
@@ -130,6 +161,10 @@ class GraphedStep:
         if x.device.type != "cuda":
             self.eager_passes += 1
             return fn(state, x)
+        with _LOCK:
+            return self._on_card(fn, state, x)
+
+    def _on_card(self, fn, state, x):
         leaves = _leaves(state)
         key = (x.device, x.shape, x.dtype,
                *((t.device, t.shape, t.dtype) for t in leaves))

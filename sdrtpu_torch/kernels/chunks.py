@@ -19,6 +19,7 @@ import functools
 import torch
 
 from .. import _build
+from ..graph.cuda_graph import count_launches
 
 
 def chunk_poly_ref(ext: torch.Tensor, valid: int, R: int, nif: int,
@@ -74,7 +75,7 @@ def chunk_poly(ext: torch.Tensor, valid: int, R: int, nif: int,
                 P, stream)
     if rc != 0:
         raise RuntimeError(f"chunk_poly: CUDA launch failed (error {rc})")
-    chunk_poly.launches += 1
+    count_launches(chunk_poly)
     return out
 
 

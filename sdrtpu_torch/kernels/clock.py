@@ -30,6 +30,7 @@ import torch
 from .. import _build, resolve_device
 from .._precision import fp32_contractions
 from ..graph.block import StreamOp
+from ..graph.cuda_graph import count_launches
 from . import taps as tapsmod
 from .loops import _f32, _sign
 from .resample import build_polyphase_bank
@@ -210,7 +211,7 @@ def _mm_launch(entries, ext, bank, n, n_out, offset0, fstate0, cstate0,
                 fmin, fmax, omega_gain, mu_gain, stream)
     if rc != 0:
         raise RuntimeError(f"mm_scan: CUDA launch failed (error {rc})")
-    mm_scan.launches += count
+    count_launches(mm_scan, count)
     return syms, valid, offset, fstate, cstate
 
 

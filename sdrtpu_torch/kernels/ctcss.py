@@ -61,6 +61,8 @@ class CtcssSquelch(StreamOp):
         self.ddc = RationalResampler(samplerate, DECODE_SAMPLERATE, device=dev)
         self.quad = Quadrature(1.0, DECODE_SAMPLERATE, device=dev)
         self._tones = torch.as_tensor(CTCSS_TONES, device=dev)
+        # built once: a host copy on every call cannot be captured
+        self._none = torch.tensor(TONE_NONE, dtype=torch.int32, device=dev)
 
     def block_multiple(self) -> int:
         return self.ddc.block_multiple()
@@ -86,7 +88,7 @@ class CtcssSquelch(StreamOp):
         tones = self._tones
         last = len(CTCSS_TONES) - 1
         offset = float(np.float32(DECODE_OFFSET))
-        none = torch.tensor(TONE_NONE, dtype=torch.int32, device=freqs.device)
+        none = self._none
         rt = self.required_tone
         mean, var, var_ok, mute, tone, fmin, fmax = carry
         for val in freqs:
@@ -107,12 +109,15 @@ class CtcssSquelch(StreamOp):
             mute = torch.where(rematch, new_mute, mute)
 
             # hysteresis band: halfway to the neighbouring tones
+            # (`torch.take`: indexing by a 0-d tensor reads it on the host)
             ti = torch.clamp(tone, 0, last).long()
-            c0 = tones[ti]
-            left = torch.where(ti > 0, tones[torch.clamp(ti - 1, min=0)],
+            c0 = torch.take(tones, ti)
+            left = torch.where(ti > 0,
+                               torch.take(tones, torch.clamp(ti - 1, min=0)),
                                c0 - 2.5)
             right = torch.where(ti < last,
-                                tones[torch.clamp(ti + 1, max=last)],
+                                torch.take(tones,
+                                           torch.clamp(ti + 1, max=last)),
                                 c0 + 2.5)
             valid = rematch & (tone != TONE_NONE)
             fmin = torch.where(valid, (left + c0) / 2.0 - offset, fmin)

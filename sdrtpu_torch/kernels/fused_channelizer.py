@@ -41,6 +41,7 @@ import torch
 from .. import _build, resolve_device
 from .._precision import fp32_contractions
 from ..graph.block import StreamOp
+from ..graph.cuda_graph import count_launches
 
 ROW = 1024
 TILE_ROWS = 64          # the reference's tile: 64 rows x 1024 samples
@@ -218,7 +219,7 @@ def mix_decimate(tail, x, coarse, fine, taps, phase, decim: int):
                 out.data_ptr(), n, T - 1, rows, C, M, T, stream)
     if rc != 0:
         raise RuntimeError(f"mix_decimate: CUDA launch failed (error {rc})")
-    mix_decimate.launches += 1
+    count_launches(mix_decimate)
     return out
 
 

@@ -24,6 +24,7 @@ import torch
 
 from .. import _build, resolve_device
 from ..graph.block import StreamOp
+from ..graph.cuda_graph import count_launches
 
 _TWO_PI = float(np.float32(2.0 * np.pi))
 
@@ -134,7 +135,7 @@ def _agc_launch(fn, in_amp, suffix_max, amp0, one_m_atk, atk, one_m_dcy,
                 one_m_dcy, dcy, set_point, max_gain, max_out, stream)
     if rc != 0:
         raise RuntimeError(f"agc_scan: CUDA launch failed (error {rc})")
-    agc_scan.launches += count
+    count_launches(agc_scan, count)
     return gains, amp
 
 
@@ -261,7 +262,7 @@ def _pll_launch(fn, x, phase0, freq0, alpha, beta, fmin, fmax, count=True):
                 alpha, beta, fmin, fmax, stream)
     if rc != 0:
         raise RuntimeError(f"pll_scan: CUDA launch failed (error {rc})")
-    pll_scan.launches += count
+    count_launches(pll_scan, count)
     return vco, phase, freq
 
 
@@ -390,7 +391,7 @@ def _costas_launch(fn, x, phase0, freq0, alpha, beta, fmin, fmax, mode,
                 COSTAS_WRAP_TURN, stream)
     if rc != 0:
         raise RuntimeError(f"costas_scan: CUDA launch failed (error {rc})")
-    costas_scan.launches += count
+    count_launches(costas_scan, count)
     return y, phase, freq
 
 
@@ -487,7 +488,17 @@ def _unwrap(p: torch.Tensor) -> torch.Tensor:
     ddmod = torch.remainder(dd + pi, 2.0 * pi) - pi
     ddmod = torch.where((ddmod == -pi) & (dd > 0), pi, ddmod)
     correct = torch.where(dd.abs() < pi, 0.0, ddmod - dd)
-    up = p[..., 1:] + torch.cumsum(correct, dim=-1)
+    if correct.is_cuda and correct.numel() == correct.shape[-1]:
+        # measured on an H100: a one-row float32 cumsum of 50 000 (the
+        # regression pilot's) differed from itself in 3 of 200 runs, as
+        # one of two rows in none, so a replayed pilot fit was not
+        # bit-equal to its eager pass; PyTorch scans a single row with a
+        # device-wide scan whose sums follow the order its tiles finish
+        # in (tests/test_torch_radio_graph_cuda.py holds it fixed)
+        sums = torch.cumsum(torch.stack((correct, correct)), dim=-1)[0]
+    else:
+        sums = torch.cumsum(correct, dim=-1)
+    up = p[..., 1:] + sums
     return torch.cat([p[..., :1], up], dim=-1)
 
 

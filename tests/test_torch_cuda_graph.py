@@ -1,6 +1,10 @@
 """`graph.cuda_graph` on the CPU: the packing of a state into one flat
-buffer, and `GraphedStep`'s eager path (the replays are held against the
-eager body on the card in tests/test_torch_if_graph_cuda.py)."""
+buffer, `GraphedStep`'s eager path, the hand kernels' launch counting
+under capture (through a stand-in graph) and `RadioChain`'s eager path (the replays
+are held against the eager bodies on the card in
+tests/test_torch_if_graph_cuda.py and tests/test_torch_radio_graph_cuda.py)."""
+
+import contextlib
 
 import numpy as np
 import pytest
@@ -52,6 +56,24 @@ def test_a_state_packs_into_one_buffer_and_back():
     assert back[0]["eq"] == () and back[1][0] == ()
 
 
+def test_bool_and_int_leaves_pack_too():
+    """A CTCSS gate's state: float, complex, bool and int32 scalars."""
+    from sdrtpu_torch.kernels.ctcss import CtcssSquelch
+
+    state = CtcssSquelch(50000.0, 12, device="cpu").init_state()
+    leaves = cuda_graph._leaves(state)
+    assert {torch.bool, torch.int32} <= {t.dtype for t in leaves}
+    specs, n = cuda_graph._layout(leaves)
+    buf = torch.zeros(n, dtype=torch.uint8)
+    for v, t in zip(cuda_graph._views(buf, specs), leaves):
+        v.copy_(t)
+    back = cuda_graph._leaves(cuda_graph._rebuild(
+        state, cuda_graph._views(buf.clone(), specs)))
+    for a, b in zip(back, leaves):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert torch.equal(a, b)
+
+
 def test_on_the_cpu_every_call_is_eager():
     calls = []
 
@@ -67,3 +89,140 @@ def test_on_the_cpu_every_call_is_eager():
     assert float(state) == 19.0
     assert (g.eager_passes, g.captures, g.replays) == (4, 0, 0)
     assert len(calls) == 4
+
+
+class _StandInGraph:
+    """`torch.cuda.CUDAGraph` on the CPU: the capture ran the step
+    eagerly, and a replay runs nothing."""
+
+    def replay(self):
+        pass
+
+
+@contextlib.contextmanager
+def _stand_in_capture(graph, capture_error_mode):
+    yield
+
+
+def _counter(name):
+    def fn():
+        cuda_graph.count_launches(fn)
+    fn.__name__ = name
+    fn.launches = 0
+    return fn
+
+
+def test_a_replay_adds_what_its_capture_counted(monkeypatch):
+    """The launches a capture counts go to the graph's tally, not to the
+    counters (the capture ran nothing on the card), and each replay adds
+    the tally; counters the capture did not touch are left alone."""
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", _StandInGraph)
+    monkeypatch.setattr(torch.cuda, "graph", _stand_in_capture)
+    scan, unused = _counter("scan"), _counter("unused")
+
+    def step(state, x):
+        scan()
+        scan()
+        y = x.cumsum(-1) + state
+        return y[..., -1:], y
+
+    scan.launches, unused.launches = 5, 7
+    state, x = torch.zeros(1), torch.ones(16)
+    leaves = cuda_graph._leaves(state)
+    g = cuda_graph._Captured(step, state, leaves, x)
+    assert g.launched == [(scan, 2)]
+    assert (scan.launches, unused.launches) == (5, 7)
+    for k in range(1, 4):
+        st, y = g(leaves, x)
+        assert st.shape == (1,) and y.shape == (16,)
+        assert (scan.launches, unused.launches) == (5 + 2 * k, 7)
+    scan()
+    assert scan.launches == 12
+
+
+def test_another_threads_launches_during_a_capture_reach_the_counter(
+        monkeypatch):
+    """A launch counted on another thread while this one captures is a
+    real launch: it goes to the counter, and no replay repeats it."""
+    import threading
+
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", _StandInGraph)
+    monkeypatch.setattr(torch.cuda, "graph", _stand_in_capture)
+    scan = _counter("scan")
+
+    def step(state, x):
+        scan()
+        other = threading.Thread(target=lambda: [scan() for _ in range(3)])
+        other.start()
+        other.join()
+        return state + 1, x
+
+    state, x = torch.zeros(1), torch.ones(4)
+    leaves = cuda_graph._leaves(state)
+    g = cuda_graph._Captured(step, state, leaves, x)
+    assert g.launched == [(scan, 1)] and scan.launches == 3
+    g(leaves, x)
+    assert scan.launches == 4
+
+
+def test_every_hand_kernel_counts_through_count_launches():
+    """No module of the port adds to a ``launches`` counter by hand: a
+    wrapper that did would count its captured launches once at capture
+    and never on a replay."""
+    import ast
+    import pathlib
+
+    import sdrtpu_torch
+
+    found = []
+    for path in pathlib.Path(sdrtpu_torch.__file__).parent.rglob("*.py"):
+        if path.name == "cuda_graph.py":
+            continue
+        for node in ast.walk(ast.parse(path.read_text())):
+            if (isinstance(node, ast.AugAssign)
+                    and isinstance(node.target, ast.Attribute)
+                    and node.target.attr == "launches"):
+                found.append(f"{path.name}:{node.lineno}")
+    assert found == [], found
+
+    from sdrtpu_torch.fec.viterbi import viterbi_decode
+    from sdrtpu_torch.kernels.chunks import chunk_poly
+    from sdrtpu_torch.kernels.clock import mm_scan
+    from sdrtpu_torch.kernels.fused_channelizer import mix_decimate
+    from sdrtpu_torch.kernels.loops import agc_scan, costas_scan, pll_scan
+
+    for fn in (agc_scan, pll_scan, costas_scan, chunk_poly, mix_decimate,
+               mm_scan, viterbi_decode):
+        assert isinstance(fn.launches, int)
+
+
+_CHAINS = {
+    **{mode: dict(mode=mode) for mode in
+       ("wfm", "nfm", "am", "usb", "lsb", "dsb", "cw", "raw")},
+    "nfm-options": dict(mode="nfm", noise_blanker=True, squelch_db=-60.0,
+                        fm_if_nr=True, ctcss_tone=12, high_pass=True),
+}
+
+
+@pytest.mark.parametrize("name", list(_CHAINS))
+def test_a_radio_chain_on_the_cpu_runs_its_body_eagerly(name):
+    """On the CPU every call of a `RadioChain` is an eager pass of its
+    body, and returns exactly what the body returns."""
+    from sdrtpu_torch.apps.radio import RadioChain
+
+    chain = RadioChain(device="cpu", **_CHAINS[name])
+    rng = np.random.default_rng(18)
+    n = chain.block_multiple() * max(1, 600 // chain.block_multiple())
+    state = ref = chain.init_state()
+    for _ in range(3):
+        x = torch.as_tensor((0.3 * np.exp(1j * np.cumsum(
+            rng.standard_normal(n))) + 0.01 * rng.standard_normal(n)
+        ).astype(np.complex64))
+        state, a = chain(state, x)
+        ref, a_ref = chain._step(ref, x)
+        assert a.shape == (2, chain.out_len(n))
+        assert torch.equal(a, a_ref)
+        tree_map(lambda u, v: torch.equal(u, v) or pytest.fail("state"),
+                 state, ref)
+    g = chain._graph
+    assert (g.eager_passes, g.captures, g.replays) == (3, 0, 0)
