@@ -382,16 +382,14 @@ def phase_device() -> dict:
 
 
 def phase_build() -> dict:
-    """Every CUDA source with nvcc, and the probe builds of the three scan
-    sources the kernels phase probes (`probe_and_identities`, the AGC in
-    `phase_seq_loops`), all
-    started together; then the native IO library with g++ (the live
+    """Every CUDA source with nvcc, all started together; then the
+    native IO library with g++ (the live
     path's pump: it must be there, and built before the live session,
     whose first connection would otherwise wait for g++)."""
     from sdrtpu_torch import _build, native
 
     t0 = time.perf_counter()
-    report = _build.build_all(probes=("sync_loops", "viterbi", "seq_loops"))
+    report = _build.build_all()
     log(f"build: {time.perf_counter() - t0:.2f} s")
     for name, r in report.items():
         log(f"  {name}: {r['seconds']:.2f} s cached={r['cached']}\n{r['log']}")
@@ -1017,19 +1015,17 @@ def phase_seq_loops() -> list[dict]:
     that trips the clipping look-ahead, and one long shape, each bit-equal
     to the plain loop (`same_bits`); and 4 800 steps from an average of
     -0.0, outside the threshold walk's domain: the kernel's general walk,
-    bit-equal too.  The probe build runs once at 4 800 steps (cycles per
-    part, to the log).  PLL (`pll_args`): 12 500 steps (the pll path's
+    bit-equal too.  PLL (`pll_args`): 12 500 steps (the pll path's
     block), 2 rows x 25 000 (the rds path's), and 12 500 steps from a
     phase of 100 rad, outside the bounded walk's domain (the kernel's
-    general walk), each bit-equal to the plain loop on the card; its
-    probe runs once at 12 500.  ``ms`` is device time per launch
+    general walk), each bit-equal to the plain loop on the card.  ``ms``
+    is device time per launch
     (profiler), ``plain_ms`` the plain loop's wall time, taken once.
     ``bound_ms`` is the contract's bytes-or-operations bound.  What
     really bounds a scan is its serial chain; `serial_chain_ms` reckons
     it from assumed latencies, this design's and the one before its
     redesign (`AGC_CHAIN_PR5`; `PLL_CHAIN_PR4`, with both divisions), for
     the log only: it is not measured."""
-    from sdrtpu_torch import probe
     from sdrtpu_torch.kernels import loops
 
     rng = np.random.default_rng(7)
@@ -1045,8 +1041,6 @@ def phase_seq_loops() -> list[dict]:
         amp0 = torch.full((rows,), -0.0 if walk == "general" else 0.0,
                           device="cuda")
         args = (in_amp, smax, amp0, *AGC_COEF)
-        if (rows, n, cplx, walk) == agc_main:
-            agc_main_args = args
         g, amp = loops.agc_scan(*args)
         torch.cuda.synchronize()
         plain_ms = wall_ms(lambda: loops.agc_scan_ref(*args))
@@ -1069,12 +1063,6 @@ def phase_seq_loops() -> list[dict]:
             **roofline(4 * (3 * rows * n + 2 * rows), 12 * rows * n)}
         log(f"agc_scan {(rows, n, cplx, walk)}: {t}; "
             f"{reckoned(n, AGC_CHAIN, AGC_CHAIN_PR5)}")
-    t = probe.agc(*agc_main_args)
-    t.pop("outputs")
-    log(f"probe agc_scan {tuple(agc_main_args[0].shape)}: cycles a step "
-        f"{t['per_step']}; a tile {t['per_tile']}; once {t['once']}; all "
-        f"parts {t['cycles_per_step']:.1f} a step (marks serialise the "
-        "parts: this ranks them, the kernel's time is ms)")
 
     pll_rows = {}
     pll_main = (1, 12500, "bounded")
@@ -1084,8 +1072,6 @@ def phase_seq_loops() -> list[dict]:
         if pll_walk(args) != walk:
             raise AssertionError(f"pll_scan {(rows, n)}: a {pll_walk(args)} "
                                  f"row, want {walk}")
-        if (rows, n, walk) == pll_main:
-            pll_main_args = args
         got = loops.pll_scan(*args)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1108,11 +1094,6 @@ def phase_seq_loops() -> list[dict]:
         chain = PLL_CHAIN if walk == "bounded" else PLL_CHAIN_PR4
         log(f"pll_scan {(rows, n, walk)}: {t}; "
             f"{reckoned(n, chain, PLL_CHAIN_PR4)}")
-    t = probe.pll(*pll_main_args)
-    t.pop("outputs")
-    log(f"probe pll_scan {tuple(pll_main_args[0].shape)}: cycles a step "
-        f"{t['per_step']}; a tile {t['per_tile']}; all parts "
-        f"{t['cycles_per_step']:.1f} a step (marks serialise the parts)")
 
     def entry(name, replaces, main, rows, tol_key, tol):
         m = rows[main]
@@ -1932,34 +1913,6 @@ def viterbi_grid_checks() -> dict:
             "ms_at_path_steps": ms}
 
 
-def probe_and_identities(costas_args, viterbi_args, mm_args) -> dict:
-    """The probe builds of costas_scan, viterbi_decode and mm_scan once at
-    the meteor path's shapes (cycles per part of a step, to the log
-    only), and the identities the Costas kernel, and the PLL's bounded
-    walk (`wrap_pi_turn`, `clip`: ``csrc/phase_wrap.cuh``), rest on over
-    every float32 (`sdrtpu_torch.probe`; every count of a difference must
-    be 0)."""
-    from sdrtpu_torch import probe
-
-    for name, fn, args in (("costas_scan", probe.costas, costas_args),
-                           ("viterbi_decode", probe.viterbi, viterbi_args),
-                           ("mm_scan", probe.mm, mm_args)):
-        t = fn(*args)
-        t.pop("outputs")
-        log(f"probe {name} {tuple(args[0].shape)}: cycles a step "
-            f"{t['per_step']}; a tile {t['per_tile']}; once {t['once']}; "
-            f"chunks walked again {t.get('rewalks', '-')}; all parts "
-            f"{t['cycles_per_step']:.1f} a step (marks serialise the "
-            "parts: this ranks them, the kernel's time is ms)")
-    ids = probe.identities()
-    log(f"costas_scan identities over all float32: {ids}")
-    differ = {k: v for k, v in ids.items() if k.endswith("differ") and v}
-    if differ:
-        raise AssertionError(f"costas_scan: an identity the kernel rests "
-                             f"on fails: {differ}")
-    return ids
-
-
 def phase_sync_kernels() -> list[dict]:
     """costas_scan, mm_scan and viterbi_decode against their plain
     PyTorch versions on the card, each timed beside the plain version.
@@ -1980,10 +1933,10 @@ def phase_sync_kernels() -> list[dict]:
     samples in, equal to the bit; costas_scan order 4 at 150 000 and
     150 001 steps on five rows (`costas_long_checks`: the meteor block,
     wrap-heavy on both walks, a NaN, a phase of -0.0); viterbi_decode
-    over K x R x n x rows (`viterbi_grid_checks`).  The probe builds run
-    once at the meteor shapes (Costas, Viterbi, M&M) and the Costas
-    identities over every float32 (`probe_and_identities`, the log).
-    Timed alone at the meteor path's shapes: costas_scan at 150 000
+    over K x R x n x rows (`viterbi_grid_checks`).  The identities the
+    Costas kernel and the PLL's bounded walk rest on, over every float32,
+    are tests/test_torch_sync_loops_cuda.py::
+    test_phase_identities_hold_over_every_float32.  Timed alone at the meteor path's shapes: costas_scan at 150 000
     steps, mm_scan at 150 000 samples in (the meteor phase holds both,
     and viterbi_decode, on the path's own inputs of a whole block:
     ``path_check``), viterbi_decode at 88 448 steps.  ``ms`` is device
@@ -2077,7 +2030,6 @@ def phase_sync_kernels() -> list[dict]:
                 float(np.float32(mm.mu_gain)))
         item = 8 if cplx else 4
         if (cplx, n) == mm_main:  # timed alone, held on the CPU
-            mm_main_args = args
             got = clock.mm_scan(*args)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -2137,8 +2089,6 @@ def phase_sync_kernels() -> list[dict]:
         sym = torch.as_tensor(soft.astype(np.float32).reshape(rows, n, 2),
                               device="cuda")
         args = (sym, dec.exp_prev, dec.prev, dec.prev_bit)
-        if (rows, n, K) == vit_main:
-            viterbi_path_args = args
         got = tv.viterbi_decode(*args)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2190,11 +2140,6 @@ def phase_sync_kernels() -> list[dict]:
 
     long_rows = costas_long_checks(coef)
     grid = viterbi_grid_checks()
-    costas_x = psk(1, METEOR_BLOCK, loops.COSTAS_ORDER4)
-    ids = probe_and_identities(
-        (costas_x, torch.full((1,), 0.3, device="cuda"),
-         torch.zeros(1, device="cuda"), *coef, loops.COSTAS_ORDER4),
-        viterbi_path_args, mm_main_args)
     costas = entry("costas_scan", "sdrtpu_torch/csrc/sync_loops.cu",
                    "sdrtpu/kernels/loops.py:144", costas_main, costas_rows,
                    {"rel_tol": COSTAS_REL_TOL,
@@ -2202,7 +2147,6 @@ def phase_sync_kernels() -> list[dict]:
     costas["long_shapes"] = long_rows
     costas["max_abs_err"] = max([costas["max_abs_err"]]
                                 + [r["max_abs_err"] for r in long_rows])
-    costas["identities"] = ids
     viterbi = entry("viterbi_decode", "sdrtpu_torch/csrc/viterbi.cu",
                     "sdrtpu/fec/viterbi.py:128", vit_main, vit_rows,
                     {"bits": "equal"})

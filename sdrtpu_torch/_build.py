@@ -14,21 +14,28 @@ beside each as ``.log``.  Nothing builds at import: the first launch of
 a kernel builds it, and `build_all` builds every source at once (one
 nvcc process each, started together).
 
-A probe build (``probe=True``) adds ``-DSDRTPU_PROBE``: the scan kernels
-then read the SM clock around each part of a step (``csrc/probe.cuh``,
-`sdrtpu_torch.probe`).  It is a library of its own, never the one the
-wrappers load.
+Every hand kernel's wrapper launches through `launch`, the one place
+that knows the launch contract a CUDA graph's capture rests on: the C
+entry runs on the current stream under the tensor's device guard, a
+nonzero ``cudaError_t`` raises, and the launch is counted through
+`graph.cuda_graph.count_launches` (so that replays count too).  `bind`
+gives a library's C entry its types.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
 import time
 from pathlib import Path
+
+import torch
+
+from .graph.cuda_graph import count_launches
 
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
@@ -38,9 +45,7 @@ SOURCES = ("chunk_poly", "mix_decimate", "seq_loops", "sync_loops",
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-PROBE_DEFINE = "-DSDRTPU_PROBE"
-
-_LIBS: dict[tuple[str, bool], ctypes.CDLL] = {}
+_LIBS: dict[str, ctypes.CDLL] = {}
 
 
 def _nvcc() -> str:
@@ -53,22 +58,16 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def _flags(probe: bool) -> tuple[str, ...]:
-    return NVCC_FLAGS + ((PROBE_DEFINE,) if probe else ())
-
-
-def lib_path(name: str, probe: bool = False) -> Path:
+def lib_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
     for header in sorted(CSRC.glob("*.cuh")):
         src += header.read_bytes()
-    digest = hashlib.sha256(src + " ".join(_flags(probe)).encode()).hexdigest()
-    kind = "-probe" if probe else ""
-    return BUILD_DIR / f"lib{name}{kind}-{digest[:12]}.so"
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 
 
-def build_all(names=SOURCES, probes=()) -> dict[str, dict]:
-    """Compile every missing library in parallel: each of ``names``, and
-    the probe build of each of ``probes`` (reported as ``name+probe``).
+def build_all(names=SOURCES) -> dict[str, dict]:
+    """Compile every missing library of ``names`` in parallel.
 
     Returns ``{name: {"seconds": float, "log": str, "cached": bool}}``
     (the log holds ptxas' register and shared-memory report; for a
@@ -79,22 +78,19 @@ def build_all(names=SOURCES, probes=()) -> dict[str, dict]:
     nvcc = None
     procs = {}
     report = {}
-    targets = [(n, False) for n in names] + [(n, True) for n in probes]
-    for name, probe in targets:
-        key = f"{name}+probe" if probe else name
-        out = lib_path(name, probe)
+    for name in names:
+        out = lib_path(name)
         if out.exists():
             log = out.with_suffix(".log")
-            report[key] = {"seconds": 0.0, "cached": True,
-                           "log": log.read_text() if log.exists() else ""}
+            report[name] = {"seconds": 0.0, "cached": True,
+                            "log": log.read_text() if log.exists() else ""}
             continue
         nvcc = nvcc or _nvcc()
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *_flags(probe), "-o", str(tmp),
-               str(CSRC / f"{name}.cu")]
-        procs[key] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                       stderr=subprocess.STDOUT, text=True),
-                      tmp, out, time.perf_counter())
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, out, time.perf_counter())
     failed = []
     for name, (proc, tmp, out, t0) in procs.items():
         log, _ = proc.communicate()
@@ -110,14 +106,35 @@ def build_all(names=SOURCES, probes=()) -> dict[str, dict]:
     return report
 
 
-def load(name: str, probe: bool = False) -> ctypes.CDLL:
-    """The loaded library of kernel ``name`` (its probe build with
-    ``probe``), built on first use."""
-    lib = _LIBS.get((name, probe))
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel ``name``, built on first use."""
+    lib = _LIBS.get(name)
     if lib is None:
-        path = lib_path(name, probe)
+        path = lib_path(name)
         if not path.exists():
-            build_all(() if probe else (name,), (name,) if probe else ())
+            build_all((name,))
         lib = ctypes.CDLL(str(path))
-        _LIBS[(name, probe)] = lib
+        _LIBS[name] = lib
     return lib
+
+
+@functools.cache
+def bind(name: str, entry: str, argtypes: tuple, restype=ctypes.c_int):
+    """Library ``name``'s C entry ``entry`` with its C argument and
+    result types, built and loaded on first use."""
+    fn = getattr(load(name), entry)
+    fn.argtypes = list(argtypes)
+    fn.restype = restype
+    return fn
+
+
+def launch(wrapper, entry, device, *args) -> None:
+    """Call the bound C entry ``entry`` with ``args`` and the handle of
+    ``device``'s current stream, under its device guard; raise on a
+    nonzero ``cudaError_t``, else count one launch of ``wrapper``."""
+    with torch.cuda.device(device):
+        rc = entry(*args, torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"{wrapper.__name__}: CUDA launch failed (error {rc})")
+    count_launches(wrapper)

@@ -1,9 +1,10 @@
 // The phase wrap and the clip of the carrier loops' steps, shared by
-// `costas_scan` (sync_loops.cu) and `pll_scan` (seq_loops.cu).  The probe
-// build's `identity_kernel` (sync_loops.cu) sweeps `wrap_pi_turn`, in
-// both its forms (the turn's bits an immediate, as Costas passes them,
-// and a kernel parameter, as the PLL does), and `clip` over every
-// float32.
+// `costas_scan` (sync_loops.cu) and `pll_scan` (seq_loops.cu).
+// `identity_kernel` (sync_loops.cu, `costas_identity_check`) sweeps
+// `wrap_pi_turn`, in both its forms (the turn's bits an immediate, as
+// Costas passes them, and a kernel parameter, as the PLL does), and
+// `clip` over every float32; tests/test_torch_sync_loops_cuda.py::
+// test_phase_identities_hold_over_every_float32 runs it.
 //
 // Arithmetic as in the plain loops (kernels/loops.py `_wrap_pi`, the
 // clamps): every product and sum rounded on its own, IEEE division,
@@ -26,8 +27,8 @@ __device__ __forceinline__ float wrap_pi(float ph) {
 // v + 0 for k = +-0.  The turn 2pi * sign(v) is one lop3, (v & sign) |
 // two_pi, with ``two_pi`` (kTwoPiBits) in a register where it comes as a
 // kernel parameter (the PLL's); with the bits an immediate in C it took
-// two, one more dependent op on the PLL's chain (6 % of its step,
-// ab_scans.py).  The Costas step passes kTwoPiBits itself.
+// two, one more dependent op on the PLL's chain (6 % of its step on an
+// H100).  The Costas step passes kTwoPiBits itself.
 __device__ __forceinline__ float wrap_pi_turn(float v, float t,
                                               unsigned two_pi) {
   unsigned turn;

@@ -29,8 +29,10 @@
 // loops.COSTAS_WRAP_TURN (`pll_params_bounded`), takes `wrap_pi_turn`
 // instead, a compare, a select and a subtraction (`phase_wrap.cuh`,
 // shared with the Costas step: the same bits as the division's wrap at
-// every float32 below COSTAS_WRAP_TURN, by the probe build's sweep,
-// `probe.identities`); any other row takes the division.
+// every float32 below COSTAS_WRAP_TURN, by `costas_identity_check`'s
+// sweep, tests/test_torch_sync_loops_cuda.py::
+// test_phase_identities_hold_over_every_float32); any other row takes
+// the division.
 //
 // agc_scan: one block of kAgcWarps warps owns one row.  The step's gain
 // needs an IEEE division, and whether the step clips (ia * gain >
@@ -64,9 +66,9 @@
 // fused multiply-add, so the plain PyTorch loops give the same bits),
 // IEEE division, rintf (half to even, as jnp.round) in the phase wrap,
 // and no fast-math intrinsics (atan2f, cosf and sinf are the functions
-// torch.atan2, torch.cos and torch.sin call on the card).  A probe build
-// (-DSDRTPU_PROBE, probe.cuh) reads the SM clock around the parts of an
-// AGC or a PLL step.
+// torch.atan2, torch.cos and torch.sin call on the card);
+// tests/test_torch_seq_loops_cuda.py holds both kernels bit-equal to
+// their plain loops.
 //
 // The C entry points take raw pointers and the stream, launch on that
 // stream, neither synchronise nor allocate, and return
@@ -79,7 +81,6 @@
 #include <cstring>
 
 #include "phase_wrap.cuh"
-#include "probe.cuh"
 
 namespace {
 
@@ -118,26 +119,12 @@ constexpr int kAgcHelpers = (kAgcWarps - 1) * kWarp;
 struct AgcParams {
   float one_m_atk, atk, one_m_dcy, dcy, set_point, max_gain, max_out;
   int in_domain;  // the parameters lie in the threshold walk's domain
-  unsigned long long* probe_out;  // a probe build's counters, else null
 };
-
-// the parts of a step, of a tile and of the launch that the probe build
-// times (the general walk: average, divide, clip, tile load and store;
-// the threshold walk: average, clip and lane 0's wait at the tile's
-// barrier; once: the domain test, with the first tile's preparation)
-enum AgcPart { kAAverage, kADivide, kAClip, kATileLoad, kATileStore,
-               kATileWait, kADomain, kASteps, kATiles, kAgcParts };
-#ifdef SDRTPU_PROBE
-using AgcProbe = Probe<kAgcParts>;
-#else
-using AgcProbe = NoProbe;
-#endif
 
 // One AGC step as the reference takes it: updates the running average,
 // returns the gain.  The general walk's step.
-template <typename P>
 __device__ __forceinline__ float agc_step(float& amp, float ia, float sm,
-                                          const AgcParams& p, P& pr) {
+                                          const AgcParams& p) {
   const float up = __fadd_rn(__fmul_rn(amp, p.one_m_atk),
                              __fmul_rn(ia, p.atk));
   const float dn = __fadd_rn(__fmul_rn(amp, p.one_m_dcy),
@@ -146,16 +133,13 @@ __device__ __forceinline__ float agc_step(float& amp, float ia, float sm,
   // a silent sample holds the average and passes at gain 1, so
   // set_point/amp is never formed from amp == 0
   a = (ia != 0.f) ? a : amp;
-  pr.mark(kAAverage, a);
   float g = (ia != 0.f) ? min_nan(__fdiv_rn(p.set_point, a), p.max_gain)
                         : 1.f;
-  pr.mark(kADivide, g);
   if (__fmul_rn(ia, g) > p.max_out) {
     // would clip: jump to the largest amplitude still to come
     a = sm;
     g = min_nan(__fdiv_rn(p.set_point, a), p.max_gain);
   }
-  pr.mark(kAClip, g);
   amp = a;
   return g;
 }
@@ -293,18 +277,14 @@ struct AgcRow {
 };
 
 // Lane 0's walk over one tile of the threshold walk: the chain.
-template <typename P>
 __device__ __forceinline__ float agc_walk_tile(float amp, const float4* sc,
                                                const float2* st, float* sa,
-                                               int m, const AgcParams& p,
-                                               P& pr) {
+                                               int m, const AgcParams& p) {
   auto step = [&](const float4 c, const float2 t) {
     const float up = __fadd_rn(__fmul_rn(amp, p.one_m_atk), c.y);
     const float dn = __fadd_rn(__fmul_rn(amp, c.w), c.z);
     const float a = (c.x > amp) ? up : dn;
-    pr.mark(kAAverage, a);
     amp = (a < t.x) ? t.y : a;
-    pr.mark(kAClip, amp);
   };
   int i = 0;
   for (; i + kAgcGroup <= m; i += kAgcGroup) {
@@ -333,20 +313,16 @@ __device__ __forceinline__ float agc_walk_tile(float amp, const float4* sc,
 // 0 walks tile k while the helpers form tile k-1's gains, copy in tile
 // k+2 and form tile k+1's products and thresholds; one block barrier a
 // tile.
-template <typename P>
 __device__ __forceinline__ float agc_threshold_walk(const AgcRow& r,
                                                     float amp,
                                                     const AgcParams& p,
-                                                    AgcTiles& s, P& pr) {
+                                                    AgcTiles& s) {
   const int tiles = (int)((r.n + kTile - 1) / kTile);
   for (int k = 0; k <= tiles; ++k) {
-    pr.mark(kATileWait, 0);
     if (r.h < 0) {
       if (threadIdx.x == 0 && k < tiles) {
         const int m = agc_tile_len(r.n, k), b = k & 1;
-        amp = agc_walk_tile(amp, s.c[b], s.t[b], s.a[b], m, p, pr);
-        pr.count(kASteps, m);
-        pr.count(kATiles, 1);
+        amp = agc_walk_tile(amp, s.c[b], s.t[b], s.a[b], m, p);
       }
     } else {
       // tile k-1's gains first: derive(k+1) writes over its samples
@@ -365,11 +341,9 @@ __device__ __forceinline__ float agc_threshold_walk(const AgcRow& r,
 
 // One row in the general walk: warp 0 alone, today's step on lane 0,
 // over arrays of its own.
-template <typename P>
 __device__ __forceinline__ float agc_general_walk(
     const float* __restrict__ ia_row, const float* __restrict__ sm_row,
-    float* __restrict__ g_row, long long n, float amp, const AgcParams& p,
-    P& pr) {
+    float* __restrict__ g_row, long long n, float amp, const AgcParams& p) {
   __shared__ float s_ia[kTile];
   __shared__ float s_sm[kTile];
   __shared__ float s_g[kTile];
@@ -381,7 +355,6 @@ __device__ __forceinline__ float agc_general_walk(
       s_sm[i] = sm_row[t0 + i];
     }
     __syncwarp();
-    pr.mark(kATileLoad, 0);
     if (lane == 0) {
       int i = 0;
       for (; i + kGroup <= m; i += kGroup) {
@@ -393,16 +366,13 @@ __device__ __forceinline__ float agc_general_walk(
         }
 #pragma unroll
         for (int k = 0; k < kGroup; ++k)
-          s_g[i + k] = agc_step(amp, ia[k], sm[k], p, pr);
+          s_g[i + k] = agc_step(amp, ia[k], sm[k], p);
       }
-      for (; i < m; ++i) s_g[i] = agc_step(amp, s_ia[i], s_sm[i], p, pr);
+      for (; i < m; ++i) s_g[i] = agc_step(amp, s_ia[i], s_sm[i], p);
     }
     __syncwarp();
     for (int i = lane; i < m; i += kWarp) g_row[t0 + i] = s_g[i];
     __syncwarp();
-    pr.mark(kATileStore, 0);
-    pr.count(kASteps, m);
-    pr.count(kATiles, 1);
   }
   return amp;
 }
@@ -419,12 +389,6 @@ __global__ void __launch_bounds__(kAgcWarps * kWarp)
   const AgcRow r{in_amp + row * n, suffix_max + row * n, gain + row * n, n,
                  tid - kWarp};
   float amp = amp_in[row];
-  AgcProbe pr;
-#ifdef SDRTPU_PROBE
-  __shared__ float s_sink;
-  pr.sink = &s_sink;
-#endif
-  pr.start();
   // the walk, decided once a row and the same on every thread.  While
   // every thread reads its share of the row (its loads independent of
   // each other), the helpers copy in tiles 0 and 1 and form tile 0's
@@ -447,17 +411,13 @@ __global__ void __launch_bounds__(kAgcWarps * kWarp)
     }
   }
   out = __syncthreads_or(out);
-  pr.mark(kADomain, out);
   if (!out) {
-    amp = agc_threshold_walk(r, amp, p, s, pr);
+    amp = agc_threshold_walk(r, amp, p, s);
   } else {
     if (tid >= kWarp) return;
-    amp = agc_general_walk(r.ia_row, r.sm_row, r.g_row, n, amp, p, pr);
+    amp = agc_general_walk(r.ia_row, r.sm_row, r.g_row, n, amp, p);
   }
-  if (tid == 0) {
-    amp_out[row] = amp;
-    pr.flush(p.probe_out);
-  }
+  if (tid == 0) amp_out[row] = amp;
 }
 
 // -- pll_scan -----------------------------------------------------------
@@ -476,19 +436,7 @@ struct PllParams {
   float wrap_fast;     // loops.COSTAS_WRAP_FAST: below it the wrap is v + 0
   unsigned two_pi;     // kTwoPiBits, a parameter: see `wrap_pi_turn`
   int bounded;         // the parameters keep a bounded row's wraps in a turn
-  unsigned long long* probe_out;  // a probe build's counters, else null
 };
-
-// the parts of a step and of a tile that the probe build times (lane 0:
-// the error and its wrap, the frequency and its clip, the phase and its
-// wrap, the phase's store, the wait at the tile's barrier)
-enum PllPart { kLError, kLFreq, kLPhase, kLStore, kLTileWait, kLSteps,
-               kLTiles, kPllParts };
-#ifdef SDRTPU_PROBE
-using PllProbe = Probe<kPllParts>;
-#else
-using PllProbe = NoProbe;
-#endif
 
 template <bool kBounded>
 __device__ __forceinline__ float pll_wrap(float v, const PllParams& p) {
@@ -502,18 +450,14 @@ __device__ __forceinline__ float pll_wrap(float v, const PllParams& p) {
 // emitted at (the one before the update).  kBounded: both wraps' inputs
 // lie within a turn (see `bounded`), so they take `wrap_pi_turn`, no
 // division.
-template <bool kBounded, typename P>
+template <bool kBounded>
 __device__ __forceinline__ float pll_step(float& phase, float& freq,
-                                          float ang, const PllParams& p,
-                                          P& pr) {
+                                          float ang, const PllParams& p) {
   const float emitted = phase;
   const float err = pll_wrap<kBounded>(__fsub_rn(ang, phase), p);
-  pr.mark(kLError, err);
   freq = clip(__fadd_rn(freq, __fmul_rn(p.beta, err)), p.fmin, p.fmax);
-  pr.mark(kLFreq, freq);
   phase = pll_wrap<kBounded>(
       __fadd_rn(__fadd_rn(phase, freq), __fmul_rn(p.alpha, err)), p);
-  pr.mark(kLPhase, phase);
   return emitted;
 }
 
@@ -547,26 +491,20 @@ __device__ __forceinline__ void pll_phasors(const float* ph,
 }
 
 // Lane 0's walk over one tile: the chain.
-template <bool kBounded, typename P>
+template <bool kBounded>
 __device__ __forceinline__ void pll_walk_tile(float& phase, float& freq,
                                               const float* sa, float* sp,
-                                              int m, const PllParams& p,
-                                              P& pr) {
+                                              int m, const PllParams& p) {
   int i = 0;
   for (; i + kPllGroup <= m; i += kPllGroup) {
     float a[kPllGroup];
 #pragma unroll
     for (int j = 0; j < kPllGroup; ++j) a[j] = sa[i + j];
 #pragma unroll
-    for (int j = 0; j < kPllGroup; ++j) {
-      sp[i + j] = pll_step<kBounded>(phase, freq, a[j], p, pr);
-      pr.mark(kLStore, 0);
-    }
+    for (int j = 0; j < kPllGroup; ++j)
+      sp[i + j] = pll_step<kBounded>(phase, freq, a[j], p);
   }
-  for (; i < m; ++i) {
-    sp[i] = pll_step<kBounded>(phase, freq, sa[i], p, pr);
-    pr.mark(kLStore, 0);
-  }
+  for (; i < m; ++i) sp[i] = pll_step<kBounded>(phase, freq, sa[i], p);
 }
 
 __global__ void __launch_bounds__(kPllWarps * kWarp)
@@ -583,18 +521,11 @@ __global__ void __launch_bounds__(kPllWarps * kWarp)
   float2* v_row = vco + row * n;
   float phase = phase_in[row];
   float freq = freq_in[row];
-  PllProbe pr;
-#ifdef SDRTPU_PROBE
-  __shared__ float s_sink;
-  pr.sink = &s_sink;
-#endif
-  pr.start();
   // the walk, decided once a row
   const bool bounded = p.bounded && fabsf(phase) <= kPllPhaseBound;
   const int tiles = (int)((n + kPllTile - 1) / kPllTile);
   pll_angles(x_row, n, 0, s_ang[0], tid, kPllWarps * kWarp);
   __syncthreads();
-  pr.mark(kLTileWait, 0);
   // lane 0 walks tile k while the helpers form tile k-1's phasors and
   // tile k+1's angles; one block barrier a tile
   for (int k = 0; k <= tiles; ++k) {
@@ -603,11 +534,9 @@ __global__ void __launch_bounds__(kPllWarps * kWarp)
       if (k < tiles) {
         const int m = pll_tile_len(n, k);
         if (bounded)
-          pll_walk_tile<true>(phase, freq, s_ang[b], s_ph[b], m, p, pr);
+          pll_walk_tile<true>(phase, freq, s_ang[b], s_ph[b], m, p);
         else
-          pll_walk_tile<false>(phase, freq, s_ang[b], s_ph[b], m, p, pr);
-        pr.count(kLSteps, m);
-        pr.count(kLTiles, 1);
+          pll_walk_tile<false>(phase, freq, s_ang[b], s_ph[b], m, p);
       }
     } else if (tid >= kWarp) {
       const int h = tid - kWarp;
@@ -616,21 +545,14 @@ __global__ void __launch_bounds__(kPllWarps * kWarp)
                                     kPllHelpers);
     }
     __syncthreads();
-    pr.mark(kLTileWait, 0);
   }
   if (tid == 0) {
     phase_out[row] = phase;
     freq_out[row] = freq;
-    pr.flush(p.probe_out);
   }
 }
 
 }  // namespace
-
-SDRTPU_PROBE_ENTRIES(agc,
-                     "average,divide,clip,tile_load,tile_store,tile_wait,"
-                     "domain,steps,tiles")
-SDRTPU_PROBE_ENTRIES(pll, "error,freq,phase,store,tile_wait,steps,tiles")
 
 // The threshold walk's domain of the parameters: set_point in (0,
 // FLT_MAX], max_out >= 0, the four coefficients in [+0, +inf].
@@ -659,8 +581,7 @@ extern "C" int agc_scan_launch(const void* in_amp, const void* suffix_max,
                     max_gain,
                     max_out,
                     agc_params_in_domain(one_m_atk, atk, one_m_dcy, dcy,
-                                         set_point, max_out),
-                    SDRTPU_PROBE_OUT(agc)};
+                                         set_point, max_out)};
   agc_scan_kernel<<<(unsigned)rows, kAgcWarps * kWarp, 0,
                     (cudaStream_t)stream>>>(
       static_cast<const float*>(in_amp), static_cast<const float*>(suffix_max),
@@ -700,8 +621,7 @@ extern "C" int pll_scan_launch(const void* x, void* vco, const void* phase_in,
                     fmax,
                     wrap_fast,
                     kTwoPiBits,
-                    pll_params_bounded(alpha, fmin, fmax, wrap_turn),
-                    SDRTPU_PROBE_OUT(pll)};
+                    pll_params_bounded(alpha, fmin, fmax, wrap_turn)};
   pll_scan_kernel<<<(unsigned)rows, kPllWarps * kWarp, 0,
                     (cudaStream_t)stream>>>(
       static_cast<const float2*>(x), static_cast<float2*>(vco),

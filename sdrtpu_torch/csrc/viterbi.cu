@@ -69,8 +69,8 @@
 // order), at R = 3 and 4 whenever that einsum's order gives the same sums
 // (always for DAB's +-1 and 0 soft symbols).
 //
-// A probe build (-DSDRTPU_PROBE, probe.cuh) reads the SM clock around each
-// part of a step.
+// tests/test_torch_viterbi_cuda.py holds the kernel bit-equal to the
+// plain loop over K x R x n x rows.
 //
 // The C entry point takes raw pointers and the stream, launches on that
 // stream, neither synchronises nor allocates (the decision scratch comes
@@ -80,8 +80,6 @@
 
 #include <climits>
 
-#include "probe.cuh"
-
 namespace {
 
 constexpr int kWarp = 32;
@@ -89,17 +87,6 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr int kSymTile = 512;   // steps of soft symbols a tile, two tiles
 constexpr int kWarmup = 512;    // steps a traceback lane walks before its chunk
 constexpr int kAhead = 16;      // decision words a traceback lane loads ahead
-
-// the parts of a step, of a tile and of the launch that the probe build
-// times
-enum ViterbiPart { kPSymbols, kPFetch, kPAcs, kPMax, kPWrite, kPSymTile,
-                   kPFinal, kPTraceback, kPSteps, kPTiles, kPRewalks,
-                   kViterbiParts };
-#ifdef SDRTPU_PROBE
-using ViterbiProbe = Probe<kViterbiParts>;
-#else
-using ViterbiProbe = NoProbe;
-#endif
 
 // An int32 key that orders as the float32 does (for all but NaN; -0
 // below +0), and its inverse, which is the same map.
@@ -173,7 +160,7 @@ __global__ void __launch_bounds__(kWarp)
                    uint2* __restrict__ choices,
                    unsigned char* __restrict__ bits,
                    float* __restrict__ metrics_out, long long n, int S,
-                   int top_shift, unsigned long long* probe_out) {
+                   int top_shift) {
   constexpr int H = kTwo ? 2 : 1;
   __shared__ __align__(16) float s_sym[2][R * kSymTile];
 
@@ -203,12 +190,6 @@ __global__ void __launch_bounds__(kWarp)
   }
   float mx = 0.f;
   unsigned w_lo = 0, w_hi = 0;  // this lane's step's decision words
-  ViterbiProbe pr;
-#ifdef SDRTPU_PROBE
-  __shared__ float s_sink;
-  pr.sink = &s_sink;
-#endif
-  pr.start();
 
   // add-compare-select
   sym_fetch<R>(s_sym[0], sr, 0, (int)(n < kSymTile ? n : kSymTile), lane);
@@ -225,9 +206,6 @@ __global__ void __launch_bounds__(kWarp)
       cp_async_commit();
     cp_async_wait<1>();
     __syncwarp();
-    pr.mark(kPSymTile, 0);
-    pr.count(kPTiles, 1);
-    pr.count(kPSteps, m);
     const float* ss = s_sym[b];
     for (int i0 = 0; i0 < m; i0 += kWarp) {
       const int kn = (m - i0 < kWarp) ? (m - i0) : kWarp;
@@ -236,7 +214,6 @@ __global__ void __launch_bounds__(kWarp)
         float rs[R];
 #pragma unroll
         for (int r = 0; r < R; ++r) rs[r] = ss[R * (i0 + k) + r];
-        pr.mark(kPSymbols, make_float2(rs[0], rs[R - 1]));
         // the predecessors' unnormalised metrics, then their metrics
         float q0 = __shfl_sync(kFull, nm[0], src0);
         float q1 = __shfl_sync(kFull, nm[0], src1);
@@ -247,7 +224,6 @@ __global__ void __launch_bounds__(kWarp)
           q1 = upper ? u1 : q1;
         }
         const float m0 = __fsub_rn(q0, mx), m1 = __fsub_rn(q1, mx);
-        pr.mark(kPFetch, make_float2(m0, m1));
         bool pick[H];
         int key = INT_MIN;
 #pragma unroll
@@ -265,16 +241,13 @@ __global__ void __launch_bounds__(kWarp)
           nm[h] = pick[h] ? c1 : c0;
           if (has) key = max(key, key_of(nm[h]));
         }
-        pr.mark(kPAcs, key);
         mx = float_of(__reduce_max_sync(kFull, key));
-        pr.mark(kPMax, mx);
         const unsigned lo = __ballot_sync(kFull, pick[0]);
         const unsigned hi = kTwo ? __ballot_sync(kFull, pick[H - 1]) : 0u;
         if (lane == k) {
           w_lo = lo;
           w_hi = hi;
         }
-        pr.mark(kPWrite, lo);
       }
       if (lane < kn) ch[t0 + i0 + lane] = make_uint2(w_lo, w_hi);
       __syncwarp();
@@ -293,7 +266,6 @@ __global__ void __launch_bounds__(kWarp)
   const unsigned at0 = __ballot_sync(kFull, key[0] == best);
   const unsigned at1 = __ballot_sync(kFull, kTwo && key[H - 1] == best);
   int state = at0 ? __ffs(at0) - 1 : kWarp + __ffs(at1) - 1;
-  pr.mark(kPFinal, state);
 
   // traceback: chunk [lo, hi) on this lane, the newest on top_lane
   const long long L = (n + kWarp - 1) / kWarp;
@@ -320,18 +292,11 @@ __global__ void __launch_bounds__(kWarp)
       const bool again = lane == l && start != above;
       if (again)
         below = walk_back<true>(ch, br, hi - 1, lo, above, S - 1, top_shift);
-      if (__ballot_sync(kFull, again)) pr.count(kPRewalks, 1);
     }
   }
-  pr.mark(kPTraceback, below);
-  if (lane == 0) pr.flush(probe_out);
 }
 
 }  // namespace
-
-SDRTPU_PROBE_ENTRIES(viterbi,
-                     "symbols,fetch,acs,max,write,sym_tile,final,traceback,"
-                     "steps,tiles,rewalks")
 
 // ``sym``: (rows, n, R) float32 soft symbols (positive = bit 0);
 // ``exp_prev``: (S, 2, R) float32, the expected symbols of the two
@@ -349,10 +314,10 @@ static void launch(const void* sym, const void* exp_prev, void* choices,
   auto* m = static_cast<float*>(metrics);
   if (K == 7)
     viterbi_kernel<R, true><<<(unsigned)rows, kWarp, 0, stream>>>(
-        s, e, c, b, m, n, 64, 5, SDRTPU_PROBE_OUT(viterbi));
+        s, e, c, b, m, n, 64, 5);
   else
     viterbi_kernel<R, false><<<(unsigned)rows, kWarp, 0, stream>>>(
-        s, e, c, b, m, n, 1 << (K - 1), K - 2, SDRTPU_PROBE_OUT(viterbi));
+        s, e, c, b, m, n, 1 << (K - 1), K - 2);
 }
 
 extern "C" int viterbi_decode_launch(const void* sym, const void* exp_prev,

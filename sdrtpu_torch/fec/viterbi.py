@@ -23,14 +23,12 @@ otherwise.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import numpy as np
 import torch
 
 from .. import _build, resolve_device
 from ..graph.block import StreamOp
-from ..graph.cuda_graph import count_launches
 
 CCSDS_POLY_A = 0o171  # 0x79
 CCSDS_POLY_B = 0o133  # 0x5B
@@ -112,15 +110,6 @@ def viterbi_decode_ref(sym, exp_prev, prev, prev_bit):
     return bits, metrics
 
 
-@functools.cache
-def _viterbi_launcher(probe: bool = False):
-    fn = _build.load("viterbi", probe).viterbi_decode_launch
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 2
-                   + [ctypes.c_int] * 2 + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def viterbi_decode(sym, exp_prev, prev, prev_bit):
     """Decoded bits and final metrics of each row of ``sym``: see
     `viterbi_decode_ref` for the arguments.  CPU tensors:
@@ -130,13 +119,6 @@ def viterbi_decode(sym, exp_prev, prev, prev_bit):
     reference's shift-register trellis, and raises otherwise."""
     if sym.device.type == "cpu":
         return viterbi_decode_ref(sym, exp_prev, prev, prev_bit)
-    return _viterbi_launch(_viterbi_launcher(), sym, exp_prev, prev,
-                           prev_bit)
-
-
-def _viterbi_launch(fn, sym, exp_prev, prev, prev_bit, count=True):
-    """`viterbi_decode` on a CUDA tensor through the C entry ``fn``;
-    ``count``: add its launch to ``viterbi_decode.launches``."""
     if sym.device.type != "cuda":
         raise ValueError(f"viterbi_decode: unsupported device {sym.device}")
     if sym.dtype != torch.float32 or sym.ndim != 3 or not sym.is_contiguous():
@@ -164,13 +146,12 @@ def _viterbi_launch(fn, sym, exp_prev, prev, prev_bit, count=True):
     e = torch.as_tensor(np.asarray(exp_prev, np.float32),
                         device=sym.device).contiguous()
     choices = torch.empty((rows, n, 2), dtype=torch.int32, device=sym.device)
-    with torch.cuda.device(sym.device):
-        stream = torch.cuda.current_stream(sym.device).cuda_stream
-        rc = fn(sym.data_ptr(), e.data_ptr(), choices.data_ptr(),
-                bits.data_ptr(), metrics.data_ptr(), rows, n, K, R, stream)
-    if rc != 0:
-        raise RuntimeError(f"viterbi_decode: CUDA launch failed (error {rc})")
-    count_launches(viterbi_decode, count)
+    entry = _build.bind("viterbi", "viterbi_decode_launch",
+                        (ctypes.c_void_p,) * 5 + (ctypes.c_longlong,) * 2
+                        + (ctypes.c_int,) * 2 + (ctypes.c_void_p,))
+    _build.launch(viterbi_decode, entry, sym.device, sym.data_ptr(),
+                  e.data_ptr(), choices.data_ptr(), bits.data_ptr(),
+                  metrics.data_ptr(), rows, n, K, R)
     return bits, metrics
 
 

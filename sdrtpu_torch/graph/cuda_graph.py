@@ -21,11 +21,11 @@ steady state), one copy moves the whole state in; otherwise each tensor
 is copied, such as a state another function replaced between calls.
 
 A hand kernel's wrapper counts its launches in its ``launches``
-attribute (`count_launches`), and a replay runs no Python: while a
-thread captures, the launches it counts go to the graph's tally instead
-(the capture ran nothing on the card), and each replay adds the tally,
-so a counter counts the kernels the card runs.  Other threads' launches
-go to the counters as ever.
+attribute (`count_launches`, called by `_build.launch`), and a replay
+runs no Python: while a thread captures, the launches it counts go to
+the graph's tally instead (the capture ran nothing on the card), and
+each replay adds the tally, so a counter counts the kernels the card
+runs.  Other threads' launches go to the counters as ever.
 
 One lock serialises every `GraphedStep` call on the card: two threads
 that replay one graph would interleave their copies into its static

@@ -14,12 +14,10 @@ shared memory, see the source's note); on a CPU tensor it runs
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
 from .. import _build
-from ..graph.cuda_graph import count_launches
 
 
 def chunk_poly_ref(ext: torch.Tensor, valid: int, R: int, nif: int,
@@ -30,18 +28,6 @@ def chunk_poly_ref(ext: torch.Tensor, valid: int, R: int, nif: int,
         ext = torch.cat([ext, ext.new_zeros(need - ext.shape[0])])
     frames = ext.unfold(0, R * nif, valid)[:P]  # (P, R*nif) view
     return frames.view(P, nif, R).transpose(1, 2).contiguous()
-
-
-@functools.cache
-def _launcher():
-    """The C entry point, built on first use:
-    (ext, out, L, valid, R, nif, P, stream) -> cudaError_t."""
-    fn = _build.load("chunk_poly").chunk_poly_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                   ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
 
 
 def chunk_poly(ext: torch.Tensor, valid: int, R: int, nif: int,
@@ -68,14 +54,12 @@ def chunk_poly(ext: torch.Tensor, valid: int, R: int, nif: int,
     if P * q_tiles >= 2 ** 31 or -(-R // 32) >= 2 ** 16:
         raise ValueError(f"chunk_poly: grid too large for {(R, nif, P)}")
     out = torch.empty((P, R, nif), dtype=torch.complex64, device=ext.device)
-    fn = _launcher()
-    with torch.cuda.device(ext.device):
-        stream = torch.cuda.current_stream(ext.device).cuda_stream
-        rc = fn(ext.data_ptr(), out.data_ptr(), ext.shape[0], valid, R, nif,
-                P, stream)
-    if rc != 0:
-        raise RuntimeError(f"chunk_poly: CUDA launch failed (error {rc})")
-    count_launches(chunk_poly)
+    # (ext, out, L, valid, R, nif, P, stream) -> cudaError_t
+    entry = _build.bind("chunk_poly", "chunk_poly_launch",
+                        (ctypes.c_void_p,) * 2 + (ctypes.c_longlong,) * 2
+                        + (ctypes.c_int,) * 3 + (ctypes.c_void_p,))
+    _build.launch(chunk_poly, entry, ext.device, ext.data_ptr(),
+                  out.data_ptr(), ext.shape[0], valid, R, nif, P)
     return out
 
 

@@ -30,7 +30,6 @@ import torch
 from .. import _build, resolve_device
 from .._precision import fp32_contractions
 from ..graph.block import StreamOp
-from ..graph.cuda_graph import count_launches
 from . import taps as tapsmod
 from .loops import _f32, _sign
 from .resample import build_polyphase_bank
@@ -117,33 +116,14 @@ def mm_scan_ref(ext, bank, n, n_out, offset0, fstate0, cstate0, fmin, fmax,
 
 
 @functools.cache
-def _mm_launcher(probe: bool = False):
-    lib = _build.load("sync_loops", probe)
-    fn = lib.mm_scan_launch
-    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_longlong] * 4
-                   + [ctypes.c_int] * 4 + [ctypes.c_float] * 4
-                   + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    room = lib.mm_scan_max_bank_bytes
-    room.argtypes = [ctypes.c_int] * 2
-    room.restype = ctypes.c_longlong
-    return fn, room
-
-
-_MM_ROOM: dict = {}
-
-
-def _mm_room(room, device_index: int, cplx: bool, Tp: int) -> int:
+def _mm_room(device_index: int, cplx: bool, Tp: int) -> int:
     """The largest bank (bytes) the kernel for ``Tp`` padded taps takes
-    on that card (``room``: its library's `mm_scan_max_bank_bytes`); the
-    C side opts the kernel in to it there, so this runs before the first
-    launch on each card.  Kept by entry and card (the entry too, so that
-    its id names it)."""
-    key = (id(room), device_index, cplx, Tp)
-    if key not in _MM_ROOM:
-        with torch.cuda.device(device_index):
-            _MM_ROOM[key] = (room, room(int(cplx), Tp))
-    return _MM_ROOM[key][1]
+    on that card (`mm_scan_max_bank_bytes`); the C side opts the kernel
+    in to it there, so this runs before the first launch on each card."""
+    room = _build.bind("sync_loops", "mm_scan_max_bank_bytes",
+                       (ctypes.c_int,) * 2, ctypes.c_longlong)
+    with torch.cuda.device(device_index):
+        return room(int(cplx), Tp)
 
 
 def mm_scan(ext, bank, n, n_out, offset0, fstate0, cstate0, fmin, fmax,
@@ -156,15 +136,6 @@ def mm_scan(ext, bank, n, n_out, offset0, fstate0, cstate0, fmin, fmax,
     if ext.device.type == "cpu":
         return mm_scan_ref(ext, bank, n, n_out, offset0, fstate0, cstate0,
                            fmin, fmax, omega_gain, mu_gain)
-    return _mm_launch(_mm_launcher(), ext, bank, n, n_out, offset0, fstate0,
-                      cstate0, fmin, fmax, omega_gain, mu_gain)
-
-
-def _mm_launch(entries, ext, bank, n, n_out, offset0, fstate0, cstate0,
-               fmin, fmax, omega_gain, mu_gain, count=True):
-    """`mm_scan` on a CUDA tensor through a library's C entries
-    ``entries`` (`_mm_launcher`'s pair); ``count``: add its launch to
-    ``mm_scan.launches``."""
     if ext.device.type != "cuda":
         raise ValueError(f"mm_scan: unsupported device {ext.device}")
     cplx = ext.is_complex()
@@ -181,8 +152,7 @@ def _mm_launch(entries, ext, bank, n, n_out, offset0, fstate0, cstate0,
             and n_out >= 0):
         raise ValueError(f"mm_scan: bad shape ext {(rows, L)}, n {n}")
     Tp = next(w for w in _MM_TAP_WIDTHS if w >= T)
-    fn, room = entries
-    limit = _mm_room(room, ext.device.index, cplx, Tp)
+    limit = _mm_room(ext.device.index, cplx, Tp)
     if P * Tp * 4 > limit:
         raise ValueError(f"mm_scan: a bank of {P} phases x {Tp} taps "
                          f"({P * Tp * 4} bytes) exceeds the {limit} bytes of "
@@ -202,16 +172,16 @@ def _mm_launch(entries, ext, bank, n, n_out, offset0, fstate0, cstate0,
     offset = torch.empty_like(offset0)
     fstate = torch.empty_like(fstate0)
     cstate = torch.empty_like(cstate0)
-    with torch.cuda.device(ext.device):
-        stream = torch.cuda.current_stream(ext.device).cuda_stream
-        rc = fn(ext.data_ptr(), bank.data_ptr(), syms.data_ptr(),
-                valid.data_ptr(), offset0.data_ptr(), fstate0.data_ptr(),
-                cstate0.data_ptr(), offset.data_ptr(), fstate.data_ptr(),
-                cstate.data_ptr(), rows, L, n, n_out, P, T, Tp, int(cplx),
-                fmin, fmax, omega_gain, mu_gain, stream)
-    if rc != 0:
-        raise RuntimeError(f"mm_scan: CUDA launch failed (error {rc})")
-    count_launches(mm_scan, count)
+    entry = _build.bind("sync_loops", "mm_scan_launch",
+                        (ctypes.c_void_p,) * 10 + (ctypes.c_longlong,) * 4
+                        + (ctypes.c_int,) * 4 + (ctypes.c_float,) * 4
+                        + (ctypes.c_void_p,))
+    _build.launch(mm_scan, entry, ext.device, ext.data_ptr(),
+                  bank.data_ptr(), syms.data_ptr(), valid.data_ptr(),
+                  offset0.data_ptr(), fstate0.data_ptr(), cstate0.data_ptr(),
+                  offset.data_ptr(), fstate.data_ptr(), cstate.data_ptr(),
+                  rows, L, n, n_out, P, T, Tp, int(cplx), fmin, fmax,
+                  omega_gain, mu_gain)
     return syms, valid, offset, fstate, cstate
 
 

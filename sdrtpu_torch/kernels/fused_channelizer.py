@@ -33,7 +33,6 @@ There is no fallback between the two.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import numpy as np
 import torch
@@ -41,7 +40,6 @@ import torch
 from .. import _build, resolve_device
 from .._precision import fp32_contractions
 from ..graph.block import StreamOp
-from ..graph.cuda_graph import count_launches
 
 ROW = 1024
 TILE_ROWS = 64          # the reference's tile: 64 rows x 1024 samples
@@ -138,22 +136,6 @@ def mix_decimate_modulated_ref(tail, x, coarse, fine, taps, phase,
                          rot_re * z_im.T + rot_im * z_re.T)
 
 
-@functools.cache
-def _library():
-    """The kernel's library, built on first use, with the C types of its
-    two entry points: ``mix_decimate_launch(tail, x, coarse, fine, taps,
-    phase, out, n, halo, rows, C, M, T, stream)`` and
-    ``mix_decimate_plan(n, C, M, T, report[9])``, both -> cudaError_t."""
-    lib = _build.load("mix_decimate")
-    lib.mix_decimate_launch.argtypes = [ctypes.c_void_p] * 7 + [
-        ctypes.c_longlong] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    lib.mix_decimate_launch.restype = ctypes.c_int
-    lib.mix_decimate_plan.argtypes = [ctypes.c_longlong] + [
-        ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
-    lib.mix_decimate_plan.restype = ctypes.c_int
-    return lib
-
-
 def launch_plan(n: int, C: int, decim: int, T: int) -> dict:
     """The grid `mix_decimate` takes for this plan on the current card:
     CTAs, the card's SMs, how many CTAs fit on one SM, CTAs per SM as
@@ -161,7 +143,11 @@ def launch_plan(n: int, C: int, decim: int, T: int) -> dict:
     groups, output ranges (one CTA each), tiles per warp, dynamic shared
     bytes, threads per CTA and outputs per lane."""
     report = (ctypes.c_int * 9)()
-    rc = _library().mix_decimate_plan(n, C, int(decim), T, report)
+    # (n, C, M, T, report[9]) -> cudaError_t
+    plan_fn = _build.bind("mix_decimate", "mix_decimate_plan",
+                          (ctypes.c_longlong,) + (ctypes.c_int,) * 3
+                          + (ctypes.POINTER(ctypes.c_int),))
+    rc = plan_fn(n, C, int(decim), T, report)
     if rc != 0:
         raise RuntimeError(f"mix_decimate: no plan (error {rc})")
     keys = ("ctas", "sms", "resident_ctas_per_sm", "channel_groups",
@@ -211,15 +197,15 @@ def mix_decimate(tail, x, coarse, fine, taps, phase, decim: int):
     if not all(t.is_contiguous() for t in args.values()):
         raise ValueError("mix_decimate: every input must be contiguous")
     out = torch.empty((C, n // M), dtype=torch.complex64, device=x.device)
-    fn = _library().mix_decimate_launch
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = fn(tail.data_ptr(), x.data_ptr(), coarse.data_ptr(),
-                fine.data_ptr(), taps.data_ptr(), phase.data_ptr(),
-                out.data_ptr(), n, T - 1, rows, C, M, T, stream)
-    if rc != 0:
-        raise RuntimeError(f"mix_decimate: CUDA launch failed (error {rc})")
-    count_launches(mix_decimate)
+    # (tail, x, coarse, fine, taps, phase, out, n, halo, rows, C, M, T,
+    # stream) -> cudaError_t
+    entry = _build.bind("mix_decimate", "mix_decimate_launch",
+                        (ctypes.c_void_p,) * 7 + (ctypes.c_longlong,)
+                        + (ctypes.c_int,) * 5 + (ctypes.c_void_p,))
+    _build.launch(mix_decimate, entry, x.device, tail.data_ptr(),
+                  x.data_ptr(), coarse.data_ptr(), fine.data_ptr(),
+                  taps.data_ptr(), phase.data_ptr(), out.data_ptr(), n,
+                  T - 1, rows, C, M, T)
     return out
 
 

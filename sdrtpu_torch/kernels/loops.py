@@ -17,14 +17,12 @@ reference runs one row.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import numpy as np
 import torch
 
 from .. import _build, resolve_device
 from ..graph.block import StreamOp
-from ..graph.cuda_graph import count_launches
 
 _TWO_PI = float(np.float32(2.0 * np.pi))
 
@@ -91,15 +89,6 @@ def agc_scan_ref(in_amp, suffix_max, amp0, one_m_atk, atk, one_m_dcy, dcy,
     return gains, amp
 
 
-@functools.cache
-def _agc_launcher(probe: bool = False):
-    fn = _build.load("seq_loops", probe).agc_scan_launch
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 2
-                   + [ctypes.c_float] * 7 + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def agc_scan(in_amp, suffix_max, amp0, one_m_atk, atk, one_m_dcy, dcy,
              set_point, max_gain, max_out):
     """Gain per sample and final average of the attack/decay AGC.
@@ -112,14 +101,6 @@ def agc_scan(in_amp, suffix_max, amp0, one_m_atk, atk, one_m_dcy, dcy,
     if in_amp.device.type == "cpu":
         return agc_scan_ref(in_amp, suffix_max, amp0, one_m_atk, atk,
                             one_m_dcy, dcy, set_point, max_gain, max_out)
-    return _agc_launch(_agc_launcher(), in_amp, suffix_max, amp0, one_m_atk,
-                       atk, one_m_dcy, dcy, set_point, max_gain, max_out)
-
-
-def _agc_launch(fn, in_amp, suffix_max, amp0, one_m_atk, atk, one_m_dcy,
-                dcy, set_point, max_gain, max_out, count=True):
-    """`agc_scan` on a CUDA tensor through the C entry ``fn``;
-    ``count``: add its launch to ``agc_scan.launches``."""
     _cuda_args("agc_scan", in_amp, torch.float32)
     _cuda_args("agc_scan", suffix_max, torch.float32)
     rows, n = in_amp.shape
@@ -128,14 +109,13 @@ def _agc_launch(fn, in_amp, suffix_max, amp0, one_m_atk, atk, one_m_dcy,
     amp0 = amp0.to(torch.float32).contiguous()
     gains = torch.empty_like(in_amp)
     amp = torch.empty_like(amp0)
-    with torch.cuda.device(in_amp.device):
-        stream = torch.cuda.current_stream(in_amp.device).cuda_stream
-        rc = fn(in_amp.data_ptr(), suffix_max.data_ptr(), gains.data_ptr(),
-                amp0.data_ptr(), amp.data_ptr(), rows, n, one_m_atk, atk,
-                one_m_dcy, dcy, set_point, max_gain, max_out, stream)
-    if rc != 0:
-        raise RuntimeError(f"agc_scan: CUDA launch failed (error {rc})")
-    count_launches(agc_scan, count)
+    entry = _build.bind("seq_loops", "agc_scan_launch",
+                        (ctypes.c_void_p,) * 5 + (ctypes.c_longlong,) * 2
+                        + (ctypes.c_float,) * 7 + (ctypes.c_void_p,))
+    _build.launch(agc_scan, entry, in_amp.device, in_amp.data_ptr(),
+                  suffix_max.data_ptr(), gains.data_ptr(), amp0.data_ptr(),
+                  amp.data_ptr(), rows, n, one_m_atk, atk, one_m_dcy, dcy,
+                  set_point, max_gain, max_out)
     return gains, amp
 
 
@@ -221,15 +201,6 @@ def pll_scan_ref(x, phase0, freq0, alpha, beta, fmin, fmax):
     return torch.complex(torch.cos(phases), torch.sin(phases)), phase, freq
 
 
-@functools.cache
-def _pll_launcher(probe: bool = False):
-    fn = _build.load("seq_loops", probe).pll_scan_launch
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 2
-                   + [ctypes.c_float] * 4 + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def pll_scan(x, phase0, freq0, alpha, beta, fmin, fmax):
     """VCO phasor per sample and final (phase, freq) of the carrier PLL.
 
@@ -240,13 +211,6 @@ def pll_scan(x, phase0, freq0, alpha, beta, fmin, fmax):
     """
     if x.device.type == "cpu":
         return pll_scan_ref(x, phase0, freq0, alpha, beta, fmin, fmax)
-    return _pll_launch(_pll_launcher(), x, phase0, freq0, alpha, beta, fmin,
-                       fmax)
-
-
-def _pll_launch(fn, x, phase0, freq0, alpha, beta, fmin, fmax, count=True):
-    """`pll_scan` on a CUDA tensor through the C entry ``fn``; ``count``:
-    add its launch to ``pll_scan.launches``."""
     _cuda_args("pll_scan", x, torch.complex64)
     rows, n = x.shape
     if phase0.shape != (rows,) or freq0.shape != (rows,):
@@ -255,14 +219,12 @@ def _pll_launch(fn, x, phase0, freq0, alpha, beta, fmin, fmax, count=True):
     freq0 = freq0.to(torch.float32).contiguous()
     vco = torch.empty_like(x)
     phase, freq = torch.empty_like(phase0), torch.empty_like(freq0)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = fn(x.data_ptr(), vco.data_ptr(), phase0.data_ptr(),
-                freq0.data_ptr(), phase.data_ptr(), freq.data_ptr(), rows, n,
-                alpha, beta, fmin, fmax, stream)
-    if rc != 0:
-        raise RuntimeError(f"pll_scan: CUDA launch failed (error {rc})")
-    count_launches(pll_scan, count)
+    entry = _build.bind("seq_loops", "pll_scan_launch",
+                        (ctypes.c_void_p,) * 6 + (ctypes.c_longlong,) * 2
+                        + (ctypes.c_float,) * 4 + (ctypes.c_void_p,))
+    _build.launch(pll_scan, entry, x.device, x.data_ptr(), vco.data_ptr(),
+                  phase0.data_ptr(), freq0.data_ptr(), phase.data_ptr(),
+                  freq.data_ptr(), rows, n, alpha, beta, fmin, fmax)
     return vco, phase, freq
 
 
@@ -342,16 +304,6 @@ def costas_scan_ref(x, phase0, freq0, alpha, beta, fmin, fmax, mode):
             phase, freq)
 
 
-@functools.cache
-def _costas_launcher(probe: bool = False):
-    fn = _build.load("sync_loops", probe).costas_scan_launch
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 2
-                   + [ctypes.c_float] * 4 + [ctypes.c_int]
-                   + [ctypes.c_float] * 6 + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def costas_scan(x, phase0, freq0, alpha, beta, fmin, fmax, mode):
     """Mixed-down samples and final (phase, freq) of the Costas loop.
 
@@ -363,14 +315,6 @@ def costas_scan(x, phase0, freq0, alpha, beta, fmin, fmax, mode):
     if x.device.type == "cpu":
         return costas_scan_ref(x, phase0, freq0, alpha, beta, fmin, fmax,
                                mode)
-    return _costas_launch(_costas_launcher(), x, phase0, freq0, alpha, beta,
-                          fmin, fmax, mode)
-
-
-def _costas_launch(fn, x, phase0, freq0, alpha, beta, fmin, fmax, mode,
-                   count=True):
-    """`costas_scan` on a CUDA tensor through the C entry ``fn``;
-    ``count``: add its launch to ``costas_scan.launches``."""
     _cuda_args("costas_scan", x, torch.complex64)
     rows, n = x.shape
     if phase0.shape != (rows,) or freq0.shape != (rows,):
@@ -382,16 +326,15 @@ def _costas_launch(fn, x, phase0, freq0, alpha, beta, fmin, fmax, mode,
     freq0 = freq0.to(torch.float32).contiguous()
     y = torch.empty_like(x)
     phase, freq = torch.empty_like(phase0), torch.empty_like(freq0)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = fn(x.data_ptr(), y.data_ptr(), phase0.data_ptr(),
-                freq0.data_ptr(), phase.data_ptr(), freq.data_ptr(), rows, n,
-                alpha, beta, fmin, fmax, mode,
-                *(_f32(p) for p in BROKEN_PHASES), COSTAS_WRAP_FAST,
-                COSTAS_WRAP_TURN, stream)
-    if rc != 0:
-        raise RuntimeError(f"costas_scan: CUDA launch failed (error {rc})")
-    count_launches(costas_scan, count)
+    entry = _build.bind("sync_loops", "costas_scan_launch",
+                        (ctypes.c_void_p,) * 6 + (ctypes.c_longlong,) * 2
+                        + (ctypes.c_float,) * 4 + (ctypes.c_int,)
+                        + (ctypes.c_float,) * 6 + (ctypes.c_void_p,))
+    _build.launch(costas_scan, entry, x.device, x.data_ptr(), y.data_ptr(),
+                  phase0.data_ptr(), freq0.data_ptr(), phase.data_ptr(),
+                  freq.data_ptr(), rows, n, alpha, beta, fmin, fmax, mode,
+                  *(_f32(p) for p in BROKEN_PHASES), COSTAS_WRAP_FAST,
+                  COSTAS_WRAP_TURN)
     return y, phase, freq
 
 

@@ -165,10 +165,9 @@ def test_another_threads_launches_during_a_capture_reach_the_counter(
     assert scan.launches == 4
 
 
-def test_every_hand_kernel_counts_through_count_launches():
-    """No module of the port adds to a ``launches`` counter by hand: a
-    wrapper that did would count its captured launches once at capture
-    and never on a replay."""
+def _package_hand_counts() -> list[str]:
+    """Every ``x.launches += ...`` in the port outside `graph.cuda_graph`
+    and every read of ``current_stream`` outside `_build`."""
     import ast
     import pathlib
 
@@ -176,24 +175,82 @@ def test_every_hand_kernel_counts_through_count_launches():
 
     found = []
     for path in pathlib.Path(sdrtpu_torch.__file__).parent.rglob("*.py"):
-        if path.name == "cuda_graph.py":
-            continue
         for node in ast.walk(ast.parse(path.read_text())):
-            if (isinstance(node, ast.AugAssign)
+            if (path.name != "cuda_graph.py"
+                    and isinstance(node, ast.AugAssign)
                     and isinstance(node.target, ast.Attribute)
                     and node.target.attr == "launches"):
                 found.append(f"{path.name}:{node.lineno}")
-    assert found == [], found
+            if (path.name != "_build.py" and isinstance(node, ast.Attribute)
+                    and node.attr == "current_stream"):
+                found.append(f"{path.name}:{node.lineno}")
+    return found
 
-    from sdrtpu_torch.fec.viterbi import viterbi_decode
-    from sdrtpu_torch.kernels.chunks import chunk_poly
-    from sdrtpu_torch.kernels.clock import mm_scan
-    from sdrtpu_torch.kernels.fused_channelizer import mix_decimate
-    from sdrtpu_torch.kernels.loops import agc_scan, costas_scan, pll_scan
 
-    for fn in (agc_scan, pll_scan, costas_scan, chunk_poly, mix_decimate,
-               mm_scan, viterbi_decode):
-        assert isinstance(fn.launches, int)
+def _meta_args(name):
+    """Arguments of hand wrapper ``name`` on the meta device, shaped so
+    that only the device is wrong."""
+    def m(*shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    c64 = torch.complex64
+    prev = np.array([[0, 1], [2, 3], [0, 1], [2, 3]])
+    return {
+        "chunk_poly": (m(64, dtype=c64), 16, 4, 8, 2),
+        "mix_decimate": (m(3, dtype=c64), m(1024, dtype=c64),
+                         m(1, 2, dtype=c64), m(1, 1024, dtype=c64), m(4),
+                         m(1), 2),
+        "agc_scan": (m(1, 8), m(1, 8), m(1), *[0.5] * 7),
+        "pll_scan": (m(1, 8, dtype=c64), m(1), m(1), 0.1, 0.01, -1.0, 1.0),
+        "costas_scan": (m(1, 8, dtype=c64), m(1), m(1), 0.1, 0.01, -1.0,
+                        1.0, 1),
+        "mm_scan": (m(1, 15), m(128, 8), 8, 4, m(1, dtype=torch.int32),
+                    m(1, 3), m(1, 4, dtype=c64), 3.9, 4.1, 1e-6, 0.01),
+        "viterbi_decode": (m(1, 8, 2), np.zeros((4, 2, 2), np.float32),
+                           prev, prev >> 1),
+    }[name]
+
+
+_HAND_WRAPPERS = {
+    "chunk_poly": "sdrtpu_torch.kernels.chunks",
+    "mix_decimate": "sdrtpu_torch.kernels.fused_channelizer",
+    "agc_scan": "sdrtpu_torch.kernels.loops",
+    "pll_scan": "sdrtpu_torch.kernels.loops",
+    "costas_scan": "sdrtpu_torch.kernels.loops",
+    "mm_scan": "sdrtpu_torch.kernels.clock",
+    "viterbi_decode": "sdrtpu_torch.fec.viterbi",
+}
+
+
+@pytest.mark.parametrize("name", list(_HAND_WRAPPERS))
+def test_every_hand_kernel_counts_through_count_launches(name):
+    """No module of the port adds to a ``launches`` counter by hand (a
+    wrapper that did would count its captured launches once at capture
+    and never on a replay) or reads the current stream: hand wrapper
+    ``name`` launches through `_build.launch` alone, which does both,
+    keeps an int counter, and raises off the CPU and the card."""
+    import ast
+    import importlib
+    import pathlib
+
+    assert _package_hand_counts() == []
+    module = importlib.import_module(_HAND_WRAPPERS[name])
+    fn = getattr(module, name)
+    assert isinstance(fn.launches, int)
+    tree = ast.parse(pathlib.Path(module.__file__).read_text())
+    body = next(node for node in tree.body
+                if isinstance(node, ast.FunctionDef) and node.name == name)
+    launches = [node for node in ast.walk(body)
+                if isinstance(node, ast.Call)
+                and isinstance(node.func, ast.Attribute)
+                and node.func.attr == "launch"
+                and isinstance(node.func.value, ast.Name)
+                and node.func.value.id == "_build"]
+    assert len(launches) == 1
+    assert isinstance(launches[0].args[0], ast.Name)
+    assert launches[0].args[0].id == name
+    with pytest.raises(ValueError, match=f"{name}: unsupported device meta"):
+        fn(*_meta_args(name))
 
 
 _CHAINS = {

@@ -17,7 +17,16 @@ counts, symbols within 1e-5 of the block peak, carried offset equal;
 the same at the wider banks (16 taps x 256 phases, 8 x 1024, 32 x 1600
 above the default 48 KB of shared memory), with the taps summed as the
 plain version's pairwise tree.
+
+`costas_identity_check` sweeps every float32 pattern through the forms
+the Costas and PLL kernels put in place of the library's: `sincos_small`
+and sincosf for sinf/cosf, `wrap_pi_fast` and `wrap_pi_turn`
+(``csrc/phase_wrap.cuh``) for the division's wrap, the max.NaN /
+min.NaN clip for the compare-and-select clip.  Tolerance: none, a NaN
+equal to any NaN.
 """
+
+import ctypes
 
 import numpy as np
 import pytest
@@ -191,3 +200,44 @@ def test_mm_scan_refuses_a_bank_it_cannot_hold():
                           torch.zeros((1, 3), device="cuda"),
                           torch.zeros((1, 4), dtype=torch.complex64,
                                       device="cuda"), 3.9, 4.1, 1e-6, 0.01)
+
+
+# the counters of `costas_identity_check`, in its order
+IDENTITY_COUNTS = ("patterns", "small_patterns", "sincosf_differ",
+                   "sincos_small_differ", "wrap_fast_patterns",
+                   "wrap_fast_differ", "wrap_turn_patterns",
+                   "wrap_turn_differ", "clip_differ")
+
+
+def _bits(v: float) -> int:
+    return int(np.array(v, np.float32).view(np.uint32))
+
+
+@pytest.mark.cuda
+def test_phase_identities_hold_over_every_float32():
+    """Over all 2^32 float32 patterns v: among those with |v| <= 4, where
+    sincosf(v) and `sincos_small(v)` differ from sinf(v), cosf(v) in any
+    bit; among those below loops.COSTAS_WRAP_FAST, where `wrap_pi_fast`
+    differs from the division's wrap (counted over all); among those
+    below COSTAS_WRAP_TURN, where `wrap_pi_turn` does, its turn's bits an
+    immediate or a parameter; and where the clip differs from the
+    compare-and-select clip at (-1, 1) and (-pi, pi).  No difference
+    anywhere, and each domain holds the patterns its bound's bits give:
+    2 * bits(t) below t, 2 * (bits(4) + 1) up to 4."""
+    _need_card()
+    from sdrtpu_torch import _build
+
+    check = _build.bind("sync_loops", "costas_identity_check",
+                        (ctypes.c_float,) * 2 + (ctypes.c_void_p,) * 2)
+    counts = torch.zeros(len(IDENTITY_COUNTS), dtype=torch.int64,
+                         device="cuda")
+    rc = check(loops.COSTAS_WRAP_FAST, loops.COSTAS_WRAP_TURN,
+               counts.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    assert rc == 0
+    got = dict(zip(IDENTITY_COUNTS, counts.tolist()))
+    assert got == {
+        "patterns": 2 ** 32,
+        "small_patterns": 2 * (_bits(4.0) + 1),
+        "wrap_fast_patterns": 2 * _bits(loops.COSTAS_WRAP_FAST),
+        "wrap_turn_patterns": 2 * _bits(loops.COSTAS_WRAP_TURN),
+        **{k: 0 for k in IDENTITY_COUNTS if k.endswith("_differ")}}
