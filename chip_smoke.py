@@ -44,7 +44,10 @@ Phases, each fatal:
 8. scan kernels: agc_scan and pll_scan against their plain PyTorch loops
    on the card, at the step counts the receiver and the WFM pilot PLL
    launch and one long shape each, timed beside the plain loop, to the
-   bit, also a row each kernel's general walk takes;
+   bit, also a row each kernel's general walk takes; then decim_fir
+   against the shift-and-add, to the bit, at the receiver's 13 DDC
+   stages, timed at the first and two last stages beside its bytes
+   bound, the plain version and a strided ``conv1d``;
 9. receiver path: `IQFrontend` + `Receiver.push`/`flush` off one 10 Msps
    capture with a 65536-bin waterfall at 20 Hz and eight VFOs — three
    wfm stereo (one fft channelizer group, K1), two nfm (a second group),
@@ -138,11 +141,12 @@ Phases, each fatal:
    decode, the tone, the launches.
 
 Around each path's run every kernel's launch count is set to 0 and read,
-and must be exact for all seven kernels (fft: chunk_poly 32; pallas:
+and must be exact for the seven kernels (fft: chunk_poly 32; pallas:
 mix_decimate 256; receiver, pll, meteor, rds, dab, falcon9, kg_sstv,
 m17, ryfi, paging, live, remote and netclients: see their phases;
 multichip: chunk_poly once a block on each rank; pfb, vor, atv, scanner
-and rtl_tcp: none; every other count 0); then the same port runs on the
+and rtl_tcp: none; every other count 0), and on the receiver path
+decim_fir's too (13 a block, one a DDC stage); then the same port runs on the
 CPU (multichip: the unsharded pipeline on the card), and the card's
 output is held against it.
 
@@ -1118,6 +1122,125 @@ def phase_seq_loops() -> list[dict]:
     return [agc, pll]
 
 
+def receiver_ddc_stages() -> list[tuple]:
+    """(vfo, decimation, taps, input length) of every `DecimatingFir`
+    stage the receiver path's per-VFO DDCs (am, usb, cw) run a block:
+    what it hands `decim_fir`."""
+    from sdrtpu_torch.apps.receiver import IQFrontend, VfoConfig
+
+    fe = IQFrontend(RX_FS, {n: VfoConfig(o, m)
+                            for n, (o, m) in RX_VFOS.items()},
+                    spectrum=False, device="cpu")
+    fe.bind(RX_BLOCK)
+    out = []
+    for name, vfo in fe.vfos.items():
+        if name in fe._grouped_names():
+            continue
+        n = RX_BLOCK // fe.decimation
+        for s in vfo.ddc.predecim.stages:
+            out.append((name, s.decimation, s.taps, n))
+            n //= s.decimation
+    return out
+
+
+def phase_decim_fir() -> dict:
+    """decim_fir against the shift-and-add (`correlate_valid` of ``tail
+    ++ x``) on the card, to the bit, at each of the receiver path's 13
+    DDC stages; timed at the first stage (decimate by 8, 30 taps,
+    2 000 000 complex64 samples) and at the am and cw DDCs' last ones,
+    beside its bytes bound, the plain version and a yardstick the port
+    never calls: cuDNN's strided ``conv1d`` over the real and imaginary
+    planes (TF32 off).  Each timed call reads one of four inputs in
+    turn, 64 MB for the first stage, more than the 50 MB L2: its read
+    comes from device memory, as the bound assumes."""
+    import torch.nn.functional as F
+
+    from sdrtpu_torch.kernels import fir
+
+    stages = receiver_ddc_stages()
+    assert [(v, M, len(t)) for v, M, t, _ in stages] == [
+        ("am", 8, 30), ("am", 8, 32), ("am", 5, 30), ("am", 2, 32),
+        ("usb", 8, 30), ("usb", 5, 20), ("usb", 5, 30), ("usb", 2, 32),
+        ("cw", 8, 30), ("cw", 8, 30), ("cw", 5, 20), ("cw", 5, 30),
+        ("cw", 2, 32)], stages
+    gen = torch.Generator(device="cuda").manual_seed(20)
+
+    def iq(*shape):
+        return torch.randn(shape, dtype=torch.complex64, device="cuda",
+                           generator=gen)
+
+    held_stages = []
+    for vfo, M, taps, n in stages:
+        tail, x = iq(len(taps) - 1), iq(n)
+        h = torch.as_tensor(taps.astype(np.float32), device="cuda")
+        got_tail, y = fir.decim_fir(tail, x, h, M)
+        want_tail, want = fir.decim_fir_ref(tail, x, h, M)
+        torch.cuda.synchronize()
+        if not (torch.equal(y, want) and torch.equal(got_tail, want_tail)):
+            raise AssertionError(
+                f"decim_fir disagrees at {vfo} ({M}, {len(taps)}, {n}): "
+                f"max_abs_err {(y - want).abs().max().item()}")
+        held_stages.append([vfo, M, len(taps), n])
+    log(f"decim_fir: the 13 receiver DDC stages bit-equal: {held_stages}")
+
+    timed = {}
+    ends = {"first": stages[0], "am_last": stages[3], "cw_last": stages[12]}
+    for key, (vfo, M, taps, n) in ends.items():
+        T = len(taps)
+        h = torch.as_tensor(taps.astype(np.float32), device="cuda")
+        w = h.view(1, 1, T)
+        ins = [(iq(T - 1), iq(n)) for _ in range(4)]
+        turn = [0]
+
+        def nxt():
+            turn[0] = (turn[0] + 1) % len(ins)
+            return ins[turn[0]]
+
+        def library():
+            tail, x = nxt()
+            ext = torch.cat([tail, x])
+            planes = torch.stack((ext.real, ext.imag))[:, None]
+            out = F.conv1d(planes, w, stride=M)
+            return torch.complex(out[0, 0], out[1, 0])
+
+        A = n // M
+        nbytes = 8 * (T - 1 + n) + 8 * A + 8 * (T - 1) + 4 * T
+        fns = {"": lambda: fir.decim_fir(*nxt(), h, M),
+               "plain_": lambda: fir.decim_fir_ref(*nxt(), h, M),
+               "library_": library}
+        t = timed[key] = {"vfo": vfo, "shape": [M, T, n],
+                          **roofline(nbytes, 4 * A * T)}
+        cudnn_tf32 = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            for name, fn in fns.items():
+                t[name + "ms"] = device_ms(
+                    fn, 20, "decim_fir_kernel" if name == "" else None)
+                t[name + "event_ms"] = cuda_ms(fn, 50)
+        finally:
+            torch.backends.cudnn.allow_tf32 = cudnn_tf32
+        t["ms_over_bound"] = t["ms"] / t["bound_ms"]
+        log(f"decim_fir {key} {(M, T, n)}: {t}")
+    first = timed["first"]
+    return {
+        "name": "decim_fir", "route": "cuda",
+        "source": "sdrtpu_torch/csrc/decim_fir.cu",
+        # no Pallas kernel: XLA fuses the reference's shift-and-add
+        "replaces": None,
+        "launches": None,  # filled in from the receiver path's run
+        "max_abs_err": 0.0, "bits": "equal",
+        "ms": first["ms"], "kernel_ms": first["ms"],
+        "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
+        "bound_by": first["bound_by"], "library_ms": first["library_ms"],
+        "event_ms": first["event_ms"],
+        "plain_event_ms": first["plain_event_ms"],
+        "library_event_ms": first["library_event_ms"],
+        "shape": first["shape"],
+        "other_shapes": [timed["am_last"], timed["cw_last"]],
+        "held_stages": held_stages,
+    }
+
+
 # The receiver path's deployment.  Every frequency is a multiple of 5 Hz,
 # so one 2 000 000-sample block (200 ms) of the capture repeats without a
 # seam and the stream is that block replayed.
@@ -1258,7 +1381,10 @@ def phase_receiver(card: str, rx_plans: dict,
     switched VFO alone twice on zeros (no chunk_poly; no agc_scan for the
     new nfm chain, 2 for the cached am chain's two replays).  mix_decimate and
     pll_scan are not on this path (the radio's pilot mode is
-    "normalized")."""
+    "normalized").  decim_fir, counted apart from the seven: once per
+    DDC stage, 13 a block."""
+    from sdrtpu_torch.kernels import fir
+
     rx, audio, spec = build_receiver("cuda")
     fe = rx.frontend
     block = rx.block_len
@@ -1278,6 +1404,7 @@ def phase_receiver(card: str, rx_plans: dict,
     counters = kernel_counters()
     for fn in counters.values():
         fn.launches = 0
+    fir.decim_fir.launches = 0
     events = {6: lambda: (rx.retune("w2", RX_SPARE["w2"][0]),
                           rx.retune("usb", RX_SPARE["usb"][0])),
               9: lambda: rx.set_mode("am", "nfm"),
@@ -1296,6 +1423,17 @@ def phase_receiver(card: str, rx_plans: dict,
                              agc_scan=3 * (RX_BLOCKS - 2) + 2 * 2 + 2)
     if launches != want:
         raise AssertionError(f"receiver path launched {launches}, want {want}")
+    # decim_fir: one a DDC stage, am 4, usb 4, cw 5 a block (3 for the am
+    # VFO as nfm, blocks 9 and 10), and set_mode's two passes of the
+    # switched VFO each way
+    stages = {n: len(fe.vfos[n].ddc.predecim.stages)
+              for n in ("am", "usb", "cw")}
+    assert stages == {"am": 4, "usb": 4, "cw": 5}, stages
+    fir_launches = fir.decim_fir.launches
+    fir_want = 13 * (RX_BLOCKS - 2) + 12 * 2 + 2 * 3 + 2 * 4
+    if fir_launches != fir_want:
+        raise AssertionError(f"receiver path launched decim_fir "
+                             f"{fir_launches} times, want {fir_want}")
 
     n_af = round(block * 48000 / RX_FS)
     for name, chunks_ in audio.items():
@@ -1422,6 +1560,7 @@ def phase_receiver(card: str, rx_plans: dict,
                     "group), am, usb, cw (per-VFO DDC)",
         "blocks": RX_BLOCKS, "samples": RX_BLOCKS * block,
         "groups": methods, "kernel_launches": launches,
+        "decim_fir_launches": fir_launches,
         "set_mode_seconds": switch_s,
         "ms_per_block": one["ms_per_block"], "msps": one["msps"],
         "msps_passes": one["msps_passes"],
@@ -4957,6 +5096,8 @@ def main(argv) -> int:
     done("tooling")
     kernels += phase_seq_loops()
     done("seq loops")
+    kernels.append(phase_decim_fir())
+    done("decim_fir")
     kernels += phase_sync_kernels()
     done("sync kernels")
     wider = phase_rates_and_banks()
@@ -5086,6 +5227,8 @@ def main(argv) -> int:
             k["path_shapes"] = {
                 "pll": paths["pll"]["kernel_check"]["at_path_shape"],
                 "rds": paths["rds"]["pll_check"]["at_path_shape"]}
+        if k["name"] == "decim_fir":  # once per DDC stage and block
+            k["launches"] = paths["receiver"]["decim_fir_launches"]
         if k["name"] == "chunk_poly":  # once per fused group and block
             k["receiver_path_launches"] = (
                 paths["receiver"]["kernel_launches"]["chunk_poly"])

@@ -40,8 +40,8 @@ from .graph.cuda_graph import count_launches
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "sdrtpu_torch"
-SOURCES = ("chunk_poly", "mix_decimate", "seq_loops", "sync_loops",
-           "viterbi")
+SOURCES = ("chunk_poly", "decim_fir", "mix_decimate", "seq_loops",
+           "sync_loops", "viterbi")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -14,7 +14,10 @@ Three evaluations of the same sum:
 - `fft_correlate_valid`: FFT overlap-save (long filters).
 
 `Fir`, `DecimatingFir` and `MultistageDecimator` (a cascade of half-band
-decimate-by-2 stages) are the stream ops on top.
+decimate-by-2 stages) are the stream ops on top.  On the card a
+`DecimatingFir` stage is one launch of a hand-written kernel
+(`decim_fir`, ``csrc/decim_fir.cu``), bit-equal to the shift-and-add,
+which stays its plain version and serves CPU tensors.
 
 Contractions are float32 ``torch.matmul``.  The reference pins its TPU
 matmuls to multi-pass precision because one bf16 pass broke the demod
@@ -24,10 +27,12 @@ SINAD floors; the port pins full float32 on each call
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
-from .. import resolve_device
+from .. import _build, resolve_device
 from .._precision import fp32_contractions
 from ..graph.block import StreamOp
 
@@ -94,6 +99,105 @@ def correlate_valid_bank(x: torch.Tensor, taps_bank, stride: int = 1,
         seg = x[..., t : t + (A - 1) * M + 1 : M]
         acc = acc + taps[:, t, None] * (seg[None, :] if shared else seg)
     return acc
+
+
+def decim_fir_ref(tail: torch.Tensor, x: torch.Tensor, h: torch.Tensor,
+                  stride: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of `decim_fir`: ``ext = tail ++ x``, the
+    shift-and-add `correlate_valid` of ``ext`` against ``h``'s values at
+    ``stride``, and the last ``T - 1`` samples of ``ext``.  Returns
+    (new tail, y)."""
+    ext = torch.cat([tail, x], dim=-1)
+    y = correlate_valid(ext, h.tolist(), stride)
+    return ext[..., x.shape[-1]:], y
+
+
+_DECIM_FIR_OUTPUTS = 256  # outputs a block at most: one a thread
+_SMEM_STATIC = 48 * 1024  # shared bytes a block takes without opting in
+_SMEM_MAX = 232448  # the H100's most a block can opt in to
+
+
+def decim_fir_plan(stride: int, ntaps: int,
+                   itemsize: int) -> tuple[int, int, int]:
+    """Tile of a `decim_fir` launch: (outputs a block ``ob``, length of a
+    phase row ``qw``, shared bytes).  The block stages the ``(ob - 1) *
+    stride + ntaps`` samples its outputs read as ``stride`` phase rows
+    of ``qw = ob + (ntaps - 1) // stride`` samples, then the taps.  The
+    largest power-of-two ``ob`` whose tile fits 48 KB, else the card's
+    most; raises where even one output's does not fit."""
+    for limit in (_SMEM_STATIC, _SMEM_MAX):
+        ob = _DECIM_FIR_OUTPUTS
+        while ob >= 1:
+            qw = ob + (ntaps - 1) // stride
+            smem = stride * qw * itemsize + 4 * ntaps
+            if smem <= limit:
+                return ob, qw, smem
+            ob //= 2
+    raise ValueError(f"decim_fir: stride {stride} with {ntaps} taps does "
+                     f"not fit in shared memory")
+
+
+def decim_fir(tail: torch.Tensor, x: torch.Tensor, h: torch.Tensor,
+              stride: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """One stage of a decimating FIR: ``y[..., i] = sum_t ext[..., i *
+    stride + t] * h[t]`` with ``ext = tail ++ x``, and the stage's next
+    tail, the last ``T - 1`` samples of ``ext``.  Returns (new tail, y).
+
+    ``x`` (..., n) complex64 or float32, ``tail`` (..., T - 1) of its
+    dtype (broadcast rows, such as an expanded 1-D state, are read in
+    place); ``h`` the ``T`` real taps as a float32 tensor on ``x``'s
+    device.  CPU tensors: `decim_fir_ref`.  CUDA tensors: the kernel on
+    the current stream (``decim_fir.launches`` counts), bit-equal to the
+    shift-and-add on the card; no fallback.
+    """
+    if x.device.type == "cpu":
+        return decim_fir_ref(tail, x, h, stride)
+    if x.device.type != "cuda":
+        raise ValueError(f"decim_fir: unsupported device {x.device}")
+    if x.dtype not in (torch.complex64, torch.float32):
+        raise ValueError(f"decim_fir: want complex64 or float32, got "
+                         f"{x.dtype}")
+    if (h.dtype != torch.float32 or h.ndim != 1 or not h.is_contiguous()
+            or h.device != x.device):
+        raise ValueError(f"decim_fir: want contiguous 1-D float32 taps on "
+                         f"{x.device}, got {h.dtype} {tuple(h.shape)} on "
+                         f"{h.device}")
+    M, T, n = int(stride), int(h.shape[0]), int(x.shape[-1])
+    lead = x.shape[:-1]
+    if (tail.dtype != x.dtype or tail.device != x.device
+            or tail.shape != lead + (T - 1,)):
+        raise ValueError(f"decim_fir: want a {x.dtype} tail of shape "
+                         f"{tuple(lead + (T - 1,))} on {x.device}, got "
+                         f"{tail.dtype} {tuple(tail.shape)} on {tail.device}")
+    rows = int(np.prod(lead, dtype=np.int64))
+    if M < 1 or T < 1 or n < 1 or not 1 <= rows < 2 ** 16:
+        raise ValueError(f"decim_fir: bad shape {tuple(x.shape)}, stride "
+                         f"{M}, {T} taps")
+    x2 = x.reshape(rows, n)
+    if x2.stride(-1) != 1:
+        x2 = x2.contiguous()
+    t2 = tail.reshape(rows, T - 1)
+    if T > 1 and t2.stride(-1) != 1:
+        t2 = t2.contiguous()
+    ob, qw, smem = decim_fir_plan(M, T, x.element_size())
+    A = (n - 1) // M + 1  # correlate_valid's (L - T) // M + 1, L = T - 1 + n
+    y = torch.empty((rows, A), dtype=x.dtype, device=x.device)
+    tail_out = torch.empty((rows, T - 1), dtype=x.dtype, device=x.device)
+    entry = _build.bind("decim_fir", "decim_fir_launch",
+                        (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+                         ctypes.c_longlong, ctypes.c_longlong,
+                         ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                         ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p)
+                        + (ctypes.c_int,) * 5 + (ctypes.c_void_p,))
+    _build.launch(decim_fir, entry, x.device, t2.data_ptr(),
+                  t2.stride(0) if T > 1 else 0, x2.data_ptr(), x2.stride(0),
+                  n, h.data_ptr(), T, M, y.data_ptr(), A,
+                  tail_out.data_ptr(), rows, int(x.is_complex()), ob, qw,
+                  smem)
+    return tail_out.reshape(lead + (T - 1,)), y.reshape(lead + (A,))
+
+
+decim_fir.launches = 0
 
 
 def toeplitz_matrix(taps, block: int) -> np.ndarray:
@@ -297,16 +401,24 @@ class Fir(StreamOp):
 
 class DecimatingFir(StreamOp):
     """FIR evaluated every ``decimation`` input samples; block lengths
-    must be divisible by the decimation (no phase carry)."""
+    must be divisible by the decimation (no phase carry).  Real taps
+    only.  Each call is one `decim_fir`: on the card one launch, which
+    also writes the next state; the taps are a float32 tensor on the
+    device, made here once (a host copy in the call would wait for the
+    device's queue, and cannot be captured in a CUDA graph)."""
 
     def __init__(self, taps: np.ndarray, decimation: int,
                  dtype=torch.complex64, device="cuda"):
         taps = np.asarray(taps)
+        if np.iscomplexobj(taps):
+            raise ValueError("DecimatingFir: complex taps are not taken")
         self.device = resolve_device(device)
         self.taps = taps
         self.ntaps = int(taps.shape[0])
         self.decimation = int(decimation)
         self.dtype = dtype
+        self._h = torch.as_tensor(taps.astype(np.float32),
+                                  device=self.device)
 
     def init_state(self):
         return torch.zeros((self.ntaps - 1,), dtype=self.dtype,
@@ -323,10 +435,7 @@ class DecimatingFir(StreamOp):
         assert n % self.decimation == 0
         x = x.to(self.dtype)
         state = state.expand(x.shape[:-1] + (self.ntaps - 1,))
-        ext = torch.cat([state, x], dim=-1)
-        y = correlate_valid(ext, self.taps, stride=self.decimation)
-        new_state = ext[..., n:] if self.ntaps > 1 else state
-        return new_state, y
+        return decim_fir(state, x, self._h, self.decimation)
 
 
 class MultistageDecimator(StreamOp):

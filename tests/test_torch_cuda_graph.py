@@ -197,6 +197,7 @@ def _meta_args(name):
     prev = np.array([[0, 1], [2, 3], [0, 1], [2, 3]])
     return {
         "chunk_poly": (m(64, dtype=c64), 16, 4, 8, 2),
+        "decim_fir": (m(1, 29, dtype=c64), m(1, 64, dtype=c64), m(30), 8),
         "mix_decimate": (m(3, dtype=c64), m(1024, dtype=c64),
                          m(1, 2, dtype=c64), m(1, 1024, dtype=c64), m(4),
                          m(1), 2),
@@ -213,6 +214,7 @@ def _meta_args(name):
 
 _HAND_WRAPPERS = {
     "chunk_poly": "sdrtpu_torch.kernels.chunks",
+    "decim_fir": "sdrtpu_torch.kernels.fir",
     "mix_decimate": "sdrtpu_torch.kernels.fused_channelizer",
     "agc_scan": "sdrtpu_torch.kernels.loops",
     "pll_scan": "sdrtpu_torch.kernels.loops",

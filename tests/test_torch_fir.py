@@ -127,6 +127,102 @@ def test_decimating_fir_streams_two_blocks():
         np.testing.assert_array_equal(st.numpy(), np.asarray(sj))
 
 
+def _decimating_fir_by_cat(taps, M, state, x):
+    """`DecimatingFir`'s step as it was written before `decim_fir`: the
+    tail and the block concatenated, the shift-and-add at the stride,
+    the concatenation's last ``T - 1`` samples as the next state."""
+    state = state.expand(x.shape[:-1] + (len(taps) - 1,))
+    ext = torch.cat([state, x], dim=-1)
+    return ext[..., x.shape[-1]:], tfir.correlate_valid(ext, taps, stride=M)
+
+
+@pytest.mark.parametrize("M,T,n", [(8, 30, 4000), (2, 32, 10), (5, 95, 30),
+                                   (1, 1, 7)],
+                         ids=["n>=T-1", "n<T-1", "n<T-1,95taps", "one-tap"])
+@pytest.mark.parametrize("cplx", [True, False], ids=["c64", "f32"])
+@pytest.mark.parametrize("lead", [(), (3,)], ids=["1row", "3rows"])
+def test_decimating_fir_streams_three_blocks_as_the_cat_path(M, T, n, cplx,
+                                                             lead):
+    """Three blocks through `DecimatingFir` (`decim_fir` on the CPU) give
+    the outputs and states of the concatenating step, to the bit, with
+    the tail shorter or longer than the block and one or three rows."""
+    taps = RNG.standard_normal(T).astype(np.float32)
+    dtype = torch.complex64 if cplx else torch.float32
+    op = tfir.DecimatingFir(taps, M, dtype=dtype, device="cpu")
+    st = ref = op.init_state()
+    for _ in range(3):
+        x = torch.as_tensor(_x(lead + (n,), cplx))
+        st, y = op(st, x)
+        ref, y_ref = _decimating_fir_by_cat(taps, M, ref, x)
+        assert y.shape == lead + (n // M,) and st.shape == lead + (T - 1,)
+        assert torch.equal(y, y_ref) and torch.equal(st, ref)
+
+
+def test_decimating_fir_refuses_complex_taps():
+    with pytest.raises(ValueError, match="complex taps"):
+        tfir.DecimatingFir(np.ones(5, np.complex64), 2, device="cpu")
+
+
+def test_build_sources_list_decim_fir():
+    """The strided FIR kernel is one of the sources `build_all` builds."""
+    from sdrtpu_torch import _build
+
+    assert "decim_fir" in _build.SOURCES
+    assert (_build.CSRC / "decim_fir.cu").exists()
+    assert _build.lib_path("decim_fir").name.startswith("libdecim_fir-")
+
+
+def _tile_reads(M, T, n, itemsize):
+    """``csrc/decim_fir.cu``'s staging and tap walk, mirrored on the
+    host over `decim_fir_plan`'s tile: for each output, the ``ext``
+    indices its taps read, in tap order."""
+    ob, qw, smem = tfir.decim_fir_plan(M, T, itemsize)
+    assert smem == M * qw * itemsize + 4 * T
+    A = (n - 1) // M + 1
+    reads = np.empty((A, T), np.int64)
+    wrap = (M - 1) * qw - 1
+    for i0 in range(0, A, ob):
+        nout = min(ob, A - i0)
+        span = (nout - 1) * M + T
+        tile = np.full(M * qw, -1, np.int64)
+        j = np.arange(span)
+        tile[(j % M) * qw + j // M] = i0 * M + j
+        for k in range(nout):
+            idx = [k]
+            p = 0
+            for _ in range(1, T):
+                p += 1
+                if p == M:
+                    p = 0
+                    idx.append(idx[-1] - wrap)
+                else:
+                    idx.append(idx[-1] + qw)
+            reads[i0 + k] = tile[idx]
+    return reads
+
+
+@pytest.mark.parametrize("M,T,n,itemsize", [
+    (8, 30, 4096, 8), (8, 32, 2048, 8), (5, 30, 1250, 8), (2, 32, 600, 8),
+    (5, 20, 1000, 4), (1, 20, 300, 4), (2, 95, 10, 8), (3, 7, 2, 8),
+    (13, 40, 2600, 8), (64, 100, 640, 8), (1, 7000, 300, 8)])
+def test_decim_fir_tile_holds_every_sample_its_taps_read(M, T, n, itemsize):
+    """In `decim_fir_plan`'s tile, in polyphase order, output i's tap t
+    reads ``ext[i * M + t]`` under the kernel's walk, for short and long
+    blocks, strides and tap counts; the tile fits 48 KB, or for 7 000
+    taps the card's most."""
+    reads = _tile_reads(M, T, n, itemsize)
+    want = np.arange(reads.shape[0])[:, None] * M + np.arange(T)[None, :]
+    np.testing.assert_array_equal(reads, want)
+    smem = tfir.decim_fir_plan(M, T, itemsize)[2]
+    assert smem <= (tfir._SMEM_MAX if T == 7000 else tfir._SMEM_STATIC)
+
+
+def test_decim_fir_plan_refuses_a_tile_past_shared_memory():
+    assert tfir.decim_fir_plan(8, 30, 8)[:2] == (256, 259)
+    with pytest.raises(ValueError, match="does not fit"):
+        tfir.decim_fir_plan(1, 30000, 8)
+
+
 def test_cuda_default_raises_without_a_card():
     """Constructors default to the card and never fall back quietly."""
     if torch.cuda.is_available():
