@@ -3,17 +3,24 @@
 
 - `IQFrontend`: optional decimation and DC block, the spectrum branch,
   N named VFOs.  VFOs that share an IF rate are fused into one
-  `Channelizer` once `bind()` fixes the block length.
+  `Channelizer` once `bind()` fixes the block length.  A VFO whose mode
+  names a digital decoder (`DECODERS`: ``"meteor_lrpt"``, SDR++'s
+  meteor_demodulator) runs that demodulator where a radio VFO runs its
+  `RadioChain`, and yields soft symbols where a radio VFO yields audio.
 - `Receiver`: frames host IQ into fixed blocks, runs the frontend on the
   device under ``torch.inference_mode()``, hands audio and spectra to
-  sinks.
+  sinks, and each decoder VFO's symbols to its deframer, whose frames go
+  to the VFO's frame sink.
 - `BlockFramer`: accumulates reads of any size into the block quantum.
 
 Spans (`metrics.span`, host ranges while ``torch.profiler`` records):
 ``sdrtpu.rx.frontend`` around `IQFrontend.__call__`; inside it
 ``sdrtpu.waterfall``, ``sdrtpu.channelizer`` (one a fused group),
-``sdrtpu.rx.ddc`` around each unfused VFO's mixer and resampler, and
-``sdrtpu.rx.radio`` around each `RadioChain` call (argument: its mode).
+``sdrtpu.rx.ddc`` around each unfused VFO's mixer and resampler,
+``sdrtpu.rx.radio`` around each `RadioChain` call (argument: its mode)
+and ``sdrtpu.rx.demod`` around each decoder VFO's demodulator (argument:
+the decoder).  The deframers run outside the frontend (``sdrtpu.deframe``,
+`decoders.ccsds`).
 
 A step is the frontend call.  Each VFO's radio chain replays one
 captured CUDA graph per input key on the card (`RadioChain`, its own
@@ -39,14 +46,21 @@ import torch
 
 from .. import resolve_device
 from ..convert import state_from_jax, state_to_numpy
+from ..decoders.ccsds import QpskAmbiguityResolver
 from ..graph.block import StreamOp
 from ..kernels.fftspec import SpectrumAnalyzer
 from ..kernels.iir import DcBlocker
 from ..kernels.mixer import FreqXlator, TunableXlator
+from ..kernels.psk import MeteorDemod
 from ..kernels.resample import IntegerDecimator, RationalResampler
 from ..metrics import span
 from ..shard.channelizer import Channelizer
 from .radio import RadioChain
+
+
+# VFO modes that carry a digital decoder: mode -> (demodulator, deframer),
+# each built as ``cls(device=...)`` with the decoder's SDR++ defaults
+DECODERS = {"meteor_lrpt": (MeteorDemod, QpskAmbiguityResolver)}
 
 
 @dataclass
@@ -92,7 +106,10 @@ class BlockFramer:
 class Vfo(StreamOp):
     """Single-VFO DDC and radio chain: xlate -> resample to IF ->
     RadioChain.  ``emit_iq=True`` also returns the IF-rate IQ ahead of
-    the demodulator."""
+    the demodulator.  A decoder mode (`DECODERS`) puts its demodulator in
+    the chain's place (``radio``), at its own rate, and the VFO's output
+    is ``(symbols (max_out,) complex64, count)``: the first ``count``
+    symbols are valid."""
 
     def __init__(self, cfg: VfoConfig, in_samplerate: float,
                  audio_rate: float, emit_iq: bool = False, device="cuda"):
@@ -100,12 +117,17 @@ class Vfo(StreamOp):
         self.cfg = cfg
         self.emit_iq = emit_iq
         self.in_samplerate = float(in_samplerate)
+        self.audio_rate = float(audio_rate)
         self.xlator = FreqXlator(-cfg.offset_hz, in_samplerate,
                                  device=self.device)
-        self.radio = RadioChain(
-            cfg.mode, audio_rate=audio_rate, bandwidth=cfg.bandwidth,
-            squelch_db=cfg.squelch_db, stereo=cfg.stereo,
-            ctcss_tone=cfg.ctcss_tone, device=self.device)
+        self.decoder = cfg.mode in DECODERS
+        if self.decoder:
+            self.radio = DECODERS[cfg.mode][0](device=self.device)
+        else:
+            self.radio = RadioChain(
+                cfg.mode, audio_rate=audio_rate, bandwidth=cfg.bandwidth,
+                squelch_db=cfg.squelch_db, stereo=cfg.stereo,
+                ctcss_tone=cfg.ctcss_tone, device=self.device)
         # the DDC targets the chain's actual IF rate (raw mode runs at
         # the audio rate)
         self.ddc = RationalResampler(in_samplerate, self.radio.if_rate,
@@ -140,12 +162,20 @@ class Vfo(StreamOp):
     def out_len(self, n: int) -> int:
         return self.radio.out_len(self.ddc.out_len(n))
 
+    def chain(self, state, y):
+        """The radio chain (or decoder) on the IF ``y``."""
+        st, out = self.radio(state, y)
+        if self.decoder:
+            syms, valid = out
+            out = (syms, torch.count_nonzero(valid))
+        return st, out
+
     def __call__(self, state, x):
         st = dict(state)
         with span("sdrtpu.rx.ddc"):
             st["xl"], y = self.xlator(state["xl"], x)
             st["ddc"], y = self.ddc(state["ddc"], y)
-        st["radio"], audio = self.radio(state["radio"], y)
+        st["radio"], audio = self.chain(state["radio"], y)
         if self.emit_iq:
             return st, (audio, y)
         return st, audio
@@ -297,7 +327,7 @@ class IQFrontend(StreamOp):
                     key = f"{if_rate:.0f}"
                     st["chan"][key], rows = chan(state["chan"][key], x)
                     for i, name in enumerate(names):
-                        rst, audios[name] = self.vfos[name].radio(
+                        rst, audios[name] = self.vfos[name].chain(
                             state["vfos"][name]["radio"], rows[i])
                         st["vfos"][name] = {"radio": rst}
             for name, vfo in self.vfos.items():
@@ -308,6 +338,8 @@ class IQFrontend(StreamOp):
 
 
 def _to_host(t):
+    if isinstance(t, tuple):  # a decoder VFO's (symbols, count)
+        return tuple(_to_host(v) for v in t)
     return t.cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
 
 
@@ -315,6 +347,9 @@ class Receiver:
     """Host side of the receiver: framing, dispatch to the device, sink fan-out.
 
     ``audio_sinks``: name -> callable(audio (2, n) float32 numpy).
+    ``frame_sinks``: decoder VFO name -> callable(frame), fed each frame
+    its deframer (``deframers[name]``, one a decoder VFO) finds in the
+    VFO's symbols: for ``"meteor_lrpt"`` a (892,) uint8 CVCDU.
     ``spectrum_sink``: callable(db (frames, fft) float32 numpy).
     ``baseband_sinks``: callables fed every whole input block.
     ``scan_batch`` > 1 hands that many blocks to the frontend's
@@ -346,7 +381,8 @@ class Receiver:
                  spectrum_sink: Callable | None = None,
                  baseband_sinks: list[Callable] | None = None,
                  scan_batch: int = 1, metrics=None,
-                 async_fetch: int | str = 0):
+                 async_fetch: int | str = 0,
+                 frame_sinks: dict[str, Callable] | None = None):
         self.frontend = frontend
         self.device = frontend.device
         m = frontend.block_multiple()
@@ -357,6 +393,9 @@ class Receiver:
         frontend.bind(block_len)  # fuse same-IF-rate VFO groups
         self.framer = BlockFramer(block_len)
         self.audio_sinks = audio_sinks or {}
+        self.frame_sinks = frame_sinks or {}
+        self.deframers: dict = {}
+        self._sync_deframers()
         self.spectrum_sink = spectrum_sink
         self.baseband_sinks = baseband_sinks or []
         self.scan_batch = int(scan_batch)
@@ -411,6 +450,14 @@ class Receiver:
 
     # -- the step -------------------------------------------------------
 
+    def _sync_deframers(self) -> None:
+        """One deframer a decoder VFO, kept while its mode stays."""
+        old, self.deframers = self.deframers, {}
+        for name, vfo in self.frontend.vfos.items():
+            if vfo.decoder:
+                self.deframers[name] = old.get(name) or DECODERS[
+                    vfo.cfg.mode][1](device=self.device)
+
     def _step(self, state, block: np.ndarray):
         """One frontend call on the device; functional in ``state``."""
         with torch.inference_mode():
@@ -451,7 +498,7 @@ class Receiver:
             if new is None:
                 cfg = dataclasses.replace(old.cfg, mode=mode,
                                           bandwidth=new_bw)
-                new = Vfo(cfg, fe.effective_samplerate, old.radio.audio_rate,
+                new = Vfo(cfg, fe.effective_samplerate, old.audio_rate,
                           emit_iq=old.emit_iq, device=self.device)
                 assert inner % new.block_multiple() == 0, (
                     f"block_len {self.block_len} incompatible with mode "
@@ -462,6 +509,10 @@ class Receiver:
             while len(cache) > self.MODE_CACHE_SIZE:
                 cache.popitem(last=False)
             fe.vfos[name] = new
+            if new.decoder or old.decoder:
+                # a new stream: the deframer starts afresh
+                self.deframers.pop(name, None)
+                self._sync_deframers()
             vst = new.init_state()
             if abs(new.cfg.offset_hz - offset) > 1e-9:
                 vst = new.retune_state(vst, offset)
@@ -664,6 +715,10 @@ class Receiver:
         for sink in self.baseband_sinks:
             for b in baseband:
                 sink(b)
+        for name, deframer in self.deframers.items():
+            if name in audios:
+                self._deframe(name, deframer, audios[name], batched,
+                              valid_fraction)
         for name, sink in self.audio_sinks.items():
             if name in audios:
                 a = _to_host(audios[name])
@@ -682,6 +737,21 @@ class Receiver:
             if valid_fraction < 1.0:
                 s = s[: int(round(s.shape[0] * valid_fraction))]
             self.spectrum_sink(s)
+
+    def _deframe(self, name, deframer, out, batched: bool,
+                 valid_fraction: float) -> None:
+        """A decoder VFO's valid symbols (each row's, in order) through its
+        deframer, the frames to its sink."""
+        syms, count = out
+        rows = zip(syms, count) if batched else [(syms, count)]
+        sink = self.frame_sinks.get(name)
+        for s, n in rows:
+            n = int(n)
+            if valid_fraction < 1.0:
+                n = int(round(n * valid_fraction))
+            for frame in deframer.process(s[:n]):
+                if sink is not None:
+                    sink(frame)
 
     def _compute(self, block: np.ndarray, valid_fraction: float = 1.0):
         """One step (caller holds the state lock); returns the `_emit`

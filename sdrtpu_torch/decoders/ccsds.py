@@ -13,6 +13,15 @@ Soft symbols stay on the decoder's device up to the Viterbi
 I/Q interleave are tensor ops there.  The decoded bits come to the host
 once per `CcsdsDeframer.process`, and the ASM search, derandomizer and
 Reed-Solomon decode are the reference's NumPy, as in the reference.
+
+Spans (`metrics.span`): ``sdrtpu.deframe`` around
+`QpskAmbiguityResolver.process` (the Viterbi launch, its wait, the bit
+copy, the ASM search and the RS decodes) and ``sdrtpu.deframe.rs``
+around each `rs_interleave_decode`.  Counters (`CcsdsDeframer.counters`,
+the resolver's of its active deframer): ``frames``, ``rs_codewords``,
+``rs_corrected_bytes``, ``rs_failures`` (codewords RS could not correct:
+their codeblock gives no frame) and ``viterbi_steps`` (trellis steps
+decoded, the carried tail's again).
 """
 
 from __future__ import annotations
@@ -23,6 +32,7 @@ import torch
 from .. import resolve_device
 from ..fec.reed_solomon import ReedSolomon
 from ..fec.viterbi import ConvEncoder, ViterbiDecoder
+from ..metrics import span
 
 ASM = 0x1ACFFC1D
 ASM_BITS = np.array([(ASM >> (31 - i)) & 1 for i in range(32)], np.uint8)
@@ -66,17 +76,20 @@ def rs_interleave_encode(data: np.ndarray, rs: ReedSolomon) -> np.ndarray:
 
 
 def rs_interleave_decode(code: np.ndarray, rs: ReedSolomon):
-    """(1020,) RS codeblock -> ((892,) CVCDU, corrections), or (None, -1)
-    when any of the four codewords fails."""
+    """(1020,) RS codeblock -> ((892,) CVCDU, corrections), or (None, -k)
+    when k of the four codewords fail (each of the four is decoded)."""
     c = np.asarray(code, np.uint8).reshape(RS_N, RS_INTERLEAVE)
     out = np.empty((RS_K, RS_INTERLEAVE), np.uint8)
-    total = 0
+    total = failed = 0
     for i in range(RS_INTERLEAVE):
         data, nerr = rs.decode(c[:, i])
         if nerr < 0:
-            return None, -1
+            failed += 1
+            continue
         total += nerr
         out[:, i] = data
+    if failed:
+        return None, -failed
     return out.reshape(-1), total
 
 
@@ -113,11 +126,18 @@ class CcsdsDeframer:
     the next call (at most two frames' worth, on the device), so frames
     straddling a `process()` boundary are not lost; the carried symbols
     are decoded again together with the next block, which also heals the
-    trellis seam.
+    trellis seam.  The carry starts `_LEAD_BITS` before the first bit not
+    yet scanned: the Viterbi starts each call in state 0, and the bits it
+    decodes first may be wrong where the stream's state is another (a
+    180-degree lock's complemented stream: ~6 of an ASM's 32 bits), so
+    the scan resumes past them.  A frame is found in the call whose input
+    holds its last bit.  ``positions[i]`` is the stream index (in decoded
+    bits, one a QPSK symbol) of ``frames[i]``'s ASM.
     """
 
     _FRAME_BITS = 32 + FRAME_BYTES * 8
     _MAX_TAIL_BITS = 2 * _FRAME_BITS  # bound the re-decoded carry
+    _LEAD_BITS = 64  # decoded again ahead of the scan: 9 constraint lengths
 
     def __init__(self, device="cuda"):
         self.device = resolve_device(device)
@@ -125,31 +145,58 @@ class CcsdsDeframer:
         self.viterbi = ViterbiDecoder(7, CONV_POLYS, device=self.device)
         self.frames: list[np.ndarray] = []
         self.rs_errors: list[int] = []
+        self.positions: list[int] = []
+        self.rs_codewords = 0
+        self.rs_corrected_bytes = 0
+        self.rs_failures = 0
+        self.viterbi_steps = 0
         self._soft_tail = torch.zeros(0, dtype=torch.float32,
                                       device=self.device)
         self._bit_tail = np.zeros(0, np.uint8)
+        self._seen = 0  # bits handed in so far
+        self._lead = 0  # bits at the soft tail's head already scanned
+
+    @property
+    def counters(self) -> dict:
+        return {"frames": len(self.frames), "rs_codewords": self.rs_codewords,
+                "rs_corrected_bytes": self.rs_corrected_bytes,
+                "rs_failures": self.rs_failures,
+                "viterbi_steps": self.viterbi_steps}
 
     def process(self, soft) -> list[np.ndarray]:
         """Decode a block of soft symbols (a tensor on any device or host
         numpy); returns the new CVCDUs."""
-        soft = torch.cat([self._soft_tail, torch.as_tensor(
-            soft, dtype=torch.float32, device=self.device)])
+        soft = torch.as_tensor(soft, dtype=torch.float32, device=self.device)
+        start = self._seen - self._soft_tail.shape[0] // 2
+        self._seen += soft.shape[0] // 2
+        soft = torch.cat([self._soft_tail, soft])
+        self.viterbi_steps += soft.shape[0] // 2
         decoded = self.viterbi.decode(soft).cpu().numpy()
-        new, consumed = self._scan(decoded)
-        self._soft_tail = soft[2 * consumed:][-2 * self._MAX_TAIL_BITS:]
+        new, consumed = self._scan(decoded, start, self._lead)
+        keep = max(consumed - self._LEAD_BITS, 0)
+        tail = soft[2 * keep:]
+        cut = max(tail.shape[0] // 2 - self._MAX_TAIL_BITS, 0)
+        self._soft_tail = tail[2 * cut:]
+        self._lead = max(consumed - keep - cut, 0)
         return new
 
     def process_bits(self, bits: np.ndarray) -> list[np.ndarray]:
         """Decode a block of hard bits (post-Viterbi input path)."""
-        bits = np.concatenate([self._bit_tail, np.asarray(bits, np.uint8)])
-        new, consumed = self._scan(bits)
+        bits = np.asarray(bits, np.uint8)
+        start = self._seen - len(self._bit_tail)
+        self._seen += len(bits)
+        bits = np.concatenate([self._bit_tail, bits])
+        new, consumed = self._scan(bits, start)
         self._bit_tail = bits[consumed:][-self._MAX_TAIL_BITS:]
         return new
 
-    def _scan(self, bits: np.ndarray) -> tuple[list[np.ndarray], int]:
+    def _scan(self, bits: np.ndarray, start: int = 0,
+              first: int = 0) -> tuple[list[np.ndarray], int]:
+        """Frames in ``bits`` from bit ``first`` on, ``bits[0]`` being
+        stream bit ``start``; returns them and the bits consumed."""
         new = []
         frame_bits = self._FRAME_BITS
-        i = 0
+        i = first
         while i + frame_bits <= len(bits):
             w = bits[i : i + 32]
             inv = np.count_nonzero(w != ASM_BITS)
@@ -158,11 +205,18 @@ class CcsdsDeframer:
                 if inv >= 29:
                     fb = fb ^ 1
                 frame = np.packbits(fb) ^ _RAND
-                data, nerr = rs_interleave_decode(frame[: RS_N * RS_INTERLEAVE], self.rs)
-                if data is not None:
+                with span("sdrtpu.deframe.rs"):
+                    data, nerr = rs_interleave_decode(
+                        frame[: RS_N * RS_INTERLEAVE], self.rs)
+                self.rs_codewords += RS_INTERLEAVE
+                if data is None:
+                    self.rs_failures -= nerr
+                else:
                     new.append(data)
                     self.frames.append(data)
                     self.rs_errors.append(nerr)
+                    self.positions.append(start + i)
+                    self.rs_corrected_bytes += nerr
                 i += frame_bits
             else:
                 i += 1
@@ -213,9 +267,21 @@ class QpskAmbiguityResolver:
     def rs_errors(self) -> list[int]:
         return self.deframer.rs_errors
 
+    @property
+    def positions(self) -> list[int]:
+        return self.deframer.positions
+
+    @property
+    def counters(self) -> dict:
+        return self.deframer.counters
+
     def process(self, symbols) -> list[np.ndarray]:
         """Deframe complex soft symbols (a complex tensor on any device or
         host numpy); returns the new CVCDUs."""
+        with span("sdrtpu.deframe"):
+            return self._process(symbols)
+
+    def _process(self, symbols) -> list[np.ndarray]:
         symbols = torch.as_tensor(symbols, device=self.device).to(
             torch.complex64)
         ks = (self.locked,) if self.locked is not None else (0, 1)

@@ -14,7 +14,9 @@ counterpart of ``sdrtpu/kernels/psk.py``).
   one-sample Q delay -> M&M (``meteor_demod.h:150-167``); defaults from
   ``meteor_demodulator/src/main.cpp:66``: 72 ksym/s from 150 ksps, RRC 33
   taps beta 0.6, AGC rate 0.1, Costas bw 0.005, omegaGain 1e-6, muGain
-  0.01.
+  0.01.  It is also a receiver VFO's chain (``VfoConfig(mode=
+  "meteor_lrpt")``): ``if_rate``, ``block_multiple``, ``out_len``, and a
+  ``sdrtpu.rx.demod`` span (argument: the decoder) around each call.
 - `Gfsk` — quadrature discriminator -> RRC -> M&M (float mode).
 
 Every chain's state keeps the reference's keys, so it converts one to
@@ -28,6 +30,7 @@ import torch
 
 from .. import resolve_device
 from ..graph.block import StreamOp
+from ..metrics import span
 from . import taps as tapsmod
 from .clock import MuellerMuller
 from .demod import Quadrature
@@ -127,6 +130,8 @@ class MeteorDemod(StreamOp):
     at ``samplerate`` -> masked soft QPSK symbols ``(syms, valid)`` of
     length ``max_out(n)``."""
 
+    decoder = "meteor_lrpt"
+
     def __init__(self, symbolrate: float = 72000.0,
                  samplerate: float = 150000.0, rrc_tap_count: int = 33,
                  rrc_beta: float = 0.6, agc_rate: float = 0.1,
@@ -143,9 +148,15 @@ class MeteorDemod(StreamOp):
         self.oqpsk = oqpsk
         self.recov = MuellerMuller(samplerate / symbolrate, omega_gain,
                                    mu_gain, omega_rel_limit, device=dev)
+        self.if_rate = float(samplerate)
 
     def max_out(self, n: int) -> int:
         return self.recov.max_out(n)
+
+    out_len = max_out
+
+    def block_multiple(self) -> int:
+        return 1
 
     def init_state(self):
         return {
@@ -158,6 +169,10 @@ class MeteorDemod(StreamOp):
         }
 
     def __call__(self, state, x):
+        with span("sdrtpu.rx.demod", self.decoder):
+            return self._demod(state, x)
+
+    def _demod(self, state, x):
         st = dict(state)
         st["rrc"], y = self.rrc(state["rrc"], x)
         st["agc"], y = self.agc(state["agc"], y)

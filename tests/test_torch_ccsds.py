@@ -3,7 +3,14 @@ files against sdrtpu's (CPU; the port's Viterbi, Costas and M&M run
 their plain PyTorch loops).
 
 Tolerance: none.  The host tables (randomizer, RS, encoder) and the
-soft-symbol bytes are byte-equal; frames are payload-exact.  The
+soft-symbol bytes are byte-equal; frames are payload-exact.
+
+One intended divergence: the port's `ReedSolomon(fcr, prim)` puts its
+roots at libcorrect's ``alpha^(prim (fcr + j))``, the CCSDS code, where
+sdrtpu's puts them at ``alpha^(fcr + prim j)``.  The same code is
+sdrtpu's with the first root ``prim fcr mod 255`` (`_jrs`), which
+sdrtpu's side is given wherever it encodes or decodes, so every other
+layer is still held byte for byte.  The
 end-to-end test is the port's counterpart of
 tests/test_ccsds.py::test_meteor_rf_end_to_end: the same seeded burst
 through both packages' `MeteorDemod`, s8 quantisation and ambiguity
@@ -33,6 +40,25 @@ from sdrtpu_torch.kernels.psk import MeteorDemod as TMeteor  # noqa: E402
 RNG = np.random.default_rng(91)
 
 
+def _jrs():
+    """sdrtpu's RS set to the port's (and CCSDS's) code."""
+    return JRs(nroots=32, prim_poly=0x187, fcr=(11 * 112) % 255, prim=11)
+
+
+def _jres():
+    """sdrtpu's ambiguity resolver, its deframers on `_jrs`."""
+    res = jcc.QpskAmbiguityResolver()
+    for c in res._cands:
+        c.rs = _jrs()
+    return res
+
+
+def _jenc():
+    enc = jcc.CcsdsEncoder()
+    enc.rs = _jrs()
+    return enc
+
+
 def _cvcdus(k, rng=RNG):
     return [rng.integers(0, 256, tcc.CVCDU_BYTES).astype(np.uint8)
             for _ in range(k)]
@@ -44,16 +70,23 @@ def test_host_tables_byte_equal():
     np.testing.assert_array_equal(
         tcc.ccsds_randomizer(8),
         np.frombuffer(bytes.fromhex("ff480ec09a0d70bc"), np.uint8))
-    tr, jr = TRs(), JRs()
+    tr, jr = TRs(), _jrs()
     for name in ("exp", "log", "genpoly"):
         np.testing.assert_array_equal(getattr(tr, name), getattr(jr, name))
+    # CCSDS 131.0-B's generator: roots alpha^(11 j), j = 112 .. 143, so
+    # its coefficients read the same both ways; sdrtpu's default is not it
+    g = [int(c) for c in tr.genpoly]
+    assert g == g[::-1]
+    for j in range(112, 144):
+        assert tr._poly_eval(tr.genpoly, int(tr.exp[(11 * j) % 255])) == 0
+    assert not np.array_equal(tr.genpoly, JRs().genpoly)
     cvs = _cvcdus(2)
     np.testing.assert_array_equal(tcc.CcsdsEncoder().encode(cvs),
-                                  jcc.CcsdsEncoder().encode(cvs))
+                                  _jenc().encode(cvs))
 
 
 def test_reed_solomon_decodes_like_reference():
-    tr, jr = TRs(), JRs()
+    tr, jr = TRs(), _jrs()
     data = RNG.integers(0, 256, tr.k).astype(np.uint8)
     cw = tr.encode(data)
     np.testing.assert_array_equal(cw, jr.encode(data))
@@ -67,6 +100,19 @@ def test_reed_solomon_decodes_like_reference():
         if nerr <= 16:
             assert nt == nerr
             np.testing.assert_array_equal(dt, data)
+
+
+@pytest.mark.parametrize("nroots, fcr, prim", [(32, 112, 11), (16, 120, 11),
+                                               (32, 1, 1)])
+def test_reed_solomon_syndromes_are_horners(nroots, fcr, prim):
+    """The table-lookup syndromes equal one Horner evaluation of the word
+    at each root, for the CCSDS, Falcon 9-like and RyFi codes."""
+    rs = TRs(nroots=nroots, prim_poly=0x187, fcr=fcr, prim=prim)
+    for word in (np.zeros(255, np.uint8), rs.encode(np.arange(rs.k) % 256),
+                 RNG.integers(0, 256, 255).astype(np.uint8)):
+        want = [rs._poly_eval(word, int(rs.exp[(prim * (fcr + j)) % 255]))
+                for j in range(nroots)]
+        np.testing.assert_array_equal(rs._syndromes(word), want)
 
 
 def test_soft_symbol_files_byte_equal(tmp_path):
@@ -98,6 +144,7 @@ def test_streaming_frame_across_call_boundary():
     assert dec._soft_tail.device.type == "cpu"
     frames += dec.process(torch.as_tensor(soft[cut:]))
     ref = jcc.CcsdsDeframer()
+    ref.rs = _jrs()
     want = ref.process(soft[:cut]) + ref.process(soft[cut:])
     assert len(frames) == len(want) == 2
     for got, w, cv in zip(frames, want, cvs):
@@ -121,6 +168,7 @@ def test_hard_bit_path_across_call_boundary():
     bits[[150, 9000]] ^= 1
     cut = 100 + 8224 + 4000  # inside the second frame
     dec, ref = tcc.CcsdsDeframer(device="cpu"), jcc.CcsdsDeframer()
+    ref.rs = _jrs()
     got = dec.process_bits(bits[:cut]) + dec.process_bits(bits[cut:])
     want = ref.process_bits(bits[:cut]) + ref.process_bits(bits[cut:])
     assert len(got) == len(want) == 3
@@ -153,7 +201,7 @@ def _meteor_burst():
     """tests/test_ccsds.py::test_meteor_rf_end_to_end's burst."""
     rng = np.random.default_rng(99)
     cvs = _cvcdus(3, rng)
-    soft_bits = jcc.CcsdsEncoder().encode(cvs)
+    soft_bits = _jenc().encode(cvs)
     syms = (soft_bits[0::2] + 1j * soft_bits[1::2]).astype(
         np.complex128) / np.sqrt(2)
     pre = np.exp(1j * (rng.integers(0, 4, 3000) * np.pi / 2 + np.pi / 4))
@@ -176,7 +224,7 @@ def test_meteor_rf_end_to_end_same_frames():
     jd = JMeteor()
     _, (out, valid) = jd(jd.init_state(), jnp.asarray(x))
     frames_j, _ = jcc.deframe_qpsk_symbols(jsym.dequantize_soft(
-        jsym.quantize_soft(np.asarray(out)[np.asarray(valid)])))
+        jsym.quantize_soft(np.asarray(out)[np.asarray(valid)])), _jres())
 
     td = TMeteor(device="cpu")
     _, (out_t, valid_t) = td(td.init_state(), torch.as_tensor(x))

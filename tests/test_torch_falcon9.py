@@ -11,6 +11,11 @@ where the M&M's phase sits at a bank-phase boundary the interpolator
 takes the neighbouring phase); the carried offset equal, phase and
 frequency within 1e-3.  The whole chain: the same packets,
 payload-exact.
+
+One intended divergence: the port's RS puts libcorrect's (120, 11)
+roots at ``alpha^(11 (120 + j))``, sdrtpu's at ``alpha^(120 + 11 j)``.
+sdrtpu's side is given the same code as first root ``11 * 120 mod 255``
+(`_jrs`) wherever it encodes or decodes.
 """
 
 import numpy as np
@@ -21,10 +26,17 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 
 from sdrtpu.decoders import falcon9 as jf  # noqa: E402
+from sdrtpu.fec.reed_solomon import ReedSolomon as JRs  # noqa: E402
 from sdrtpu_torch.convert import state_from_jax  # noqa: E402
 from sdrtpu_torch.decoders import falcon9 as tf  # noqa: E402
 
 RNG = np.random.default_rng(11)
+
+
+def _jrs():
+    """sdrtpu's RS set to the port's (libcorrect's) code."""
+    return JRs(nroots=tf.RS_ROOTS, prim_poly=0x187, fcr=(11 * 120) % 255,
+               prim=11)
 
 
 def _frame_data(counter, pointer, body):
@@ -45,7 +57,7 @@ def _capture(fs, frames, sps=4):
     """NRZ FSK of ASM + RS-coded frames, phase accumulated per sample."""
     parts = [RNG.integers(0, 2, 400).astype(np.uint8)]
     for data in frames:
-        fbits = np.unpackbits(jf.rs_frame_encode(data))
+        fbits = np.unpackbits(jf.rs_frame_encode(data, _jrs()))
         parts += [jf._ASM_PATTERN, fbits,
                   np.zeros(jf.FRAME_BITS - fbits.size, np.uint8)]
     parts.append(RNG.integers(0, 2, 120).astype(np.uint8))
@@ -66,13 +78,18 @@ def test_tables_and_constants_equal():
 def test_rs_frames_equal_with_errors():
     data = RNG.integers(0, 256, tf.DATA_BYTES).astype(np.uint8)
     code = tf.rs_frame_encode(data)
-    np.testing.assert_array_equal(code, jf.rs_frame_encode(data))
+    np.testing.assert_array_equal(code, jf.rs_frame_encode(data, _jrs()))
+    # libcorrect's (120, 11): roots alpha^(11 j), j = 120 .. 135, a
+    # generator that reads the same both ways; sdrtpu's default is not it
+    g = [int(c) for c in tf._falcon_rs().genpoly]
+    assert g == g[::-1]
+    assert not np.array_equal(code, jf.rs_frame_encode(data))
     bad = code.copy()
     # 6 byte errors in each of the 5 interleaved codewords (8 correctable)
     idx = np.concatenate([RNG.choice(255, 6, replace=False) * 5 + lane
                           for lane in range(5)])
     bad[idx] ^= RNG.integers(1, 256, idx.size).astype(np.uint8)
-    got, want = tf.rs_frame_decode(bad), jf.rs_frame_decode(bad)
+    got, want = tf.rs_frame_decode(bad), jf.rs_frame_decode(bad, _jrs())
     assert got[1] == want[1] > 0
     np.testing.assert_array_equal(got[0], data)
 
@@ -123,7 +140,7 @@ def test_iq_to_packets_at_the_published_rate():
               for i in range(3)]
     bits = [RNG.integers(0, 2, 400).astype(np.uint8)]
     for data in frames:
-        fbits = np.unpackbits(jf.rs_frame_encode(data))
+        fbits = np.unpackbits(jf.rs_frame_encode(data, _jrs()))
         bits += [jf._ASM_PATTERN, fbits,
                  np.zeros(jf.FRAME_BITS - fbits.size, np.uint8)]
     bits.append(RNG.integers(0, 2, 200).astype(np.uint8))
@@ -133,7 +150,9 @@ def test_iq_to_packets_at_the_published_rate():
     iq = np.exp(1j * np.cumsum(2 * np.pi * jf.DEVIATION / fs * sym)
                 ).astype(np.complex64)
     out = {}
-    for name, dec in (("ref", jf.Falcon9Decoder(fs)),
+    ref = jf.Falcon9Decoder(fs)
+    ref.rs = _jrs()
+    for name, dec in (("ref", ref),
                       ("port", tf.Falcon9Decoder(fs, device="cpu"))):
         pk = []
         for chunk in np.array_split(iq, 3):
