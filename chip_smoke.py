@@ -68,14 +68,21 @@ Phases, each fatal:
    shapes;
 13. meteor path: the Meteor M2 LRPT chain of examples/meteor_lrpt.py at
    the configuration's published parameters — `MeteorDemod` on 16 blocks
-   of 1 s at 150 ksps (costas_scan, mm_scan), the ambiguity resolver's
+   of 1 s at 150 ksps (costas_mm_scan: the Costas and M&M scans in one
+   launch, counted as one costas_scan and one mm_scan), the ambiguity
+   resolver's
    Viterbi (viterbi_decode), ASM search and RS(255,223) on the host, a
    `.s` soft-symbol file written and deframed again — every CVCDU but
    at most the first two recovered payload-exact, the host's share of
    each block timed stage by stage; two blocks turned by 90 degrees
    lock on the other rotation; card against CPU over the first block,
    and each kernel held against its plain version on that block's
-   inputs;
+   inputs; costas_mm_scan on those inputs against costas_scan then
+   mm_scan on the card, to the bit, against the plain Costas loop's
+   recorded outputs and the plain M&M loop over its own Costas output,
+   and the three timed (the `kernels` line's costas_mm_scan entry; its
+   costas_scan and mm_scan entries count the meteor path's launches net
+   of costas_mm_scan's);
 14. rds path: the RDS fixture through `BroadcastFm(pilot_mode="pll")`'s
    tap, `RdsDemod` and `RdsDecoder`: PI 0xF00D, PS "SDRTPU  "; its
    pll_scan calls held and timed as the pll path's;
@@ -761,6 +768,7 @@ def kernel_counters() -> dict:
             "mix_decimate": fused_channelizer.mix_decimate,
             "agc_scan": loops.agc_scan, "pll_scan": loops.pll_scan,
             "costas_scan": loops.costas_scan, "mm_scan": clock.mm_scan,
+            "costas_mm_scan": clock.costas_mm_scan,
             "viterbi_decode": viterbi.viterbi_decode}
 
 
@@ -2380,6 +2388,123 @@ def host_timers(acc: dict):
             setattr(owner, attr, fn)
 
 
+def hold_costas_mm(costas_calls, mm_calls, plain_n: int = 6000) -> dict:
+    """`costas_mm_scan` on the inputs of the meteor path's first block
+    (its recorded plain Costas and M&M calls: 150 000 samples), held
+    three ways, else raise: against `costas_scan` then `mm_scan` on the
+    card, symbols, valid mask, every carry and the new tail equal to the
+    bit; its Costas output and carries against the recorded plain Costas
+    loop's, by `held`; its symbols, valid mask and carries against the
+    plain M&M loop on the CPU over its own Costas output, equal to the
+    bit.  Timed: the device ms of one launch of each of the three
+    (profiler), the fused one by CUDA events too, and the two plain
+    loops on the card over the row's first ``plain_n`` samples.  The
+    contract's bound counts x, the turned samples, the symbols and mask
+    once each and both loops' operations; the reckoned serial bound,
+    max(Costas chain, M&M chain) plus the M&M walk of its last window,
+    is not a measurement."""
+    from sdrtpu_torch.kernels import clock, loops
+
+    def card(t):
+        return t.cuda().contiguous() if torch.is_tensor(t) else t
+
+    (c_args, c_out), = costas_calls
+    (m_args, _), = mm_calls
+    x, ph0, fr0, alpha, beta, fmin, fmax, mode = map(card, c_args)
+    ext, bank, n, n_out, off, fstate, cstate, *gains = map(card, m_args)
+    tail = ext[:, :ext.shape[1] - n].contiguous()
+    carries = [off, *(fstate[:, k].contiguous() for k in range(3)),
+               *(cstate[:, k].contiguous() for k in range(4))]
+    coef = (alpha, beta, fmin, fmax, mode)
+    fused = (x, tail, ph0, fr0, *coef, bank, n_out, carries, *gains)
+    got = clock.costas_mm_scan(*fused)
+    y, ph, fr = loops.costas_scan(x, ph0, fr0, *coef)
+    e = torch.cat([tail, y], dim=-1)
+    syms, valid, o, f, c = clock.mm_scan(e, bank, n, n_out, off, fstate,
+                                         cstate, *gains)
+    want = (y, ph, fr, syms, valid, e[:, n:],
+            (o - n, *f.unbind(1), *c.unbind(1)))
+    torch.cuda.synchronize()
+    differ = [k for k, (g, w) in enumerate(zip(
+        list(got[:-1]) + list(got[-1]), list(want[:-1]) + list(want[-1])))
+        if not same_bits(g.cpu(), w.cpu())]
+    if differ:
+        raise AssertionError(f"meteor: costas_mm_scan differs from "
+                             f"costas_scan then mm_scan in outputs {differ}")
+    costas_check = held("costas_scan", got[:3], c_out,
+                        "the meteor path's first block, costas_mm_scan")
+    g_y, g_ph, g_fr, g_syms, g_valid, g_tail, g_carries = (
+        [t.cpu() for t in got[:-1]] + [[t.cpu() for t in got[-1]]])
+    g_ext = torch.cat([tail.cpu(), g_y], dim=-1)
+    with torch.inference_mode():
+        plain = clock.mm_scan_ref(
+            g_ext, bank.cpu(), n, n_out, off.cpu(), fstate.cpu(),
+            cstate.cpu(), *gains)
+    g_off, *g_rest = g_carries
+    mm_check = held("mm_scan", (g_syms, g_valid, g_off + n,
+                                torch.stack(g_rest[:3], 1),
+                                torch.stack(g_rest[3:], 1)), plain,
+                    "the meteor path's first block, costas_mm_scan's "
+                    "M&M on its own Costas output")
+    if not same_bits(g_tail, g_ext[:, n:]):
+        raise AssertionError("meteor: costas_mm_scan's new tail is not "
+                             "the last samples of its Costas output")
+    xs = x[:, :plain_n].contiguous()
+    n_out_s = int(np.ceil(plain_n * n_out / n)) + 2  # the block's slots
+
+    def plain_loops():
+        ys, *_ = loops.costas_scan_ref(xs, ph0, fr0, *coef)
+        clock.mm_scan_ref(torch.cat([tail, ys], dim=-1), bank, plain_n,
+                          n_out_s, off, fstate, cstate, *gains)
+
+    n_valid = int(valid.sum())
+    cmode = int(mode)
+    window = int(np.ceil(2048 * n_valid / n))  # symbols in the last window
+    return {
+        "samples": n, "symbols": n_valid, "bit_equal_two_launches": True,
+        "costas_vs_plain": costas_check, "mm_vs_plain": mm_check,
+        "ms": device_ms(lambda: clock.costas_mm_scan(*fused), 5,
+                        "costas_scan_into_mm_scan_kernel"),
+        "costas_scan_ms": device_ms(lambda: loops.costas_scan(
+            x, ph0, fr0, *coef), 5, "costas_scan_kernel"),
+        "mm_scan_ms": device_ms(lambda: clock.mm_scan(
+            e, bank, n, n_out, off, fstate, cstate, *gains), 5,
+            "mm_scan_kernel"),
+        "event_ms": cuda_ms(lambda: clock.costas_mm_scan(*fused), 5),
+        "plain_ms": wall_ms(plain_loops), "plain_shape": [1, plain_n],
+        **roofline(16 * n + 16 + 9 * n_out + 4096 + 2 * 8 * tail.shape[1],
+                   40 * n + 40 * n_valid),
+        "serial_bound_ms": max(
+            serial_chain_ms(n, costas_chains(cmode)[0]),
+            serial_chain_ms(n_valid, MM_CHAIN))
+        + serial_chain_ms(window, MM_CHAIN)}
+
+
+def costas_mm_entry(check: dict, launches: int, ms_on_path) -> dict:
+    """The `kernels` line's entry of `costas_mm_scan`, from the meteor
+    path's `hold_costas_mm` and its launches."""
+    return {
+        "name": "costas_mm_scan", "route": "cuda",
+        "source": "sdrtpu_torch/csrc/sync_loops.cu",
+        # the reference's lax.scans of the two loops, one after the other
+        "replaces": ["sdrtpu/kernels/loops.py:144",
+                     "sdrtpu/kernels/clock.py:165"],
+        "launches": launches,
+        "max_abs_err": max(check["costas_vs_plain"]["max_abs_err"],
+                           check["mm_vs_plain"]["max_abs_err"]),
+        "rel_tol": COSTAS_REL_TOL, "carry_atol": COSTAS_PHASE_ATOL,
+        "mm_bits": "equal", "path_check": {k: check[k] for k in (
+            "symbols", "bit_equal_two_launches", "costas_vs_plain",
+            "mm_vs_plain", "costas_scan_ms", "mm_scan_ms")},
+        "ms": check["ms"], "ms_on_path": ms_on_path,
+        "event_ms": check["event_ms"], "plain_ms": check["plain_ms"],
+        "plain_shape": check["plain_shape"],
+        "bound_ms": check["bound_ms"], "bound_by": check["bound_by"],
+        "serial_bound_ms": check["serial_bound_ms"],
+        "library_ms": None,  # no PyTorch call computes these recurrences
+        "shape": [1, check["samples"]]}
+
+
 def phase_meteor(card: str, profile_path: str | None = None) -> dict:
     """The Meteor M2 LRPT receive path on the card, as
     examples/meteor_lrpt.py runs it: `MeteorDemod` (its defaults: the
@@ -2390,9 +2515,10 @@ def phase_meteor(card: str, profile_path: str | None = None) -> dict:
     rotation 0; its first two blocks turned by 90 degrees lock on
     rotation 1 and give the same frames.
 
-    Launch counts, worked out from the code: one costas_scan and one
-    mm_scan per block; viterbi_decode as `expected_viterbi` from the
-    block and rotation the resolver locked on; nothing else.
+    Launch counts, worked out from the code: one costas_mm_scan per
+    block, which counts one costas_scan and one mm_scan; viterbi_decode
+    as `expected_viterbi` from the block and rotation the resolver
+    locked on; nothing else.
 
     Then the port on the CPU runs the first block (150 000 samples, the
     path's shape), its symbols and frames held against the card's; the
@@ -2468,6 +2594,7 @@ def phase_meteor(card: str, profile_path: str | None = None) -> dict:
         lock = next(b for b, t in enumerate(times) if t["locked"] is not None)
         want = expected_launches(
             costas_scan=METEOR_BLOCKS, mm_scan=METEOR_BLOCKS,
+            costas_mm_scan=METEOR_BLOCKS,
             viterbi_decode=expected_viterbi(METEOR_BLOCKS, lock, 0))
         if resolver.locked != 0 or launches != want:
             raise AssertionError(
@@ -2491,7 +2618,7 @@ def phase_meteor(card: str, profile_path: str | None = None) -> dict:
         lock_rot = next((b for b, t in enumerate(times_rot)
                          if t["locked"] is not None), None)
         want_rot = expected_launches(
-            costas_scan=2, mm_scan=2,
+            costas_scan=2, mm_scan=2, costas_mm_scan=2,
             viterbi_decode=expected_viterbi(2, lock_rot or 0, 1))
         if (res_rot.locked != 1 or launches_rot != want_rot
                 or len(frames_rot) != n_first or not all(
@@ -2524,7 +2651,7 @@ def phase_meteor(card: str, profile_path: str | None = None) -> dict:
             lambda: run_blocks(st_p, res_p, x, METEOR_PROFILED,
                                METEOR_PROFILED + 4))
     on_path = kernel_ms_per_launch(
-        prof, ("costas_scan_kernel", "mm_scan_kernel", "viterbi_kernel"))
+        prof, ("costas_scan_into_mm_scan_kernel", "viterbi_kernel"))
     busy_ms_block = busy_us / 1e3 / 4
     steady = times[METEOR_PROFILED:METEOR_PROFILED + 4]
     wall_ms_block = float(np.median([t["ms"] for t in steady]))
@@ -2568,6 +2695,10 @@ def phase_meteor(card: str, profile_path: str | None = None) -> dict:
         kernel_checks[name] = hold_recorded(name, calls, "the meteor path")
         log(f"meteor: {name} held on the path's inputs: "
             f"{kernel_checks[name]}")
+    kernel_checks["costas_mm_scan"] = hold_costas_mm(
+        recorded["costas_scan"], recorded["mm_scan"])
+    log(f"meteor: costas_mm_scan on the path's inputs: "
+        f"{kernel_checks['costas_mm_scan']}")
 
     total_s = sum(t["ms"] for t in times) / 1e3
     after = times[lock + 1:]
@@ -5151,9 +5282,17 @@ def main(argv) -> int:
     done("remote path")
     paths["netclients"] = phase_netclients(dev["card"])
     done("netclients path")
+    meteor_launches = paths["meteor"]["kernel_launches"]
+    fused_launches = meteor_launches["costas_mm_scan"]
+    kernels.append(costas_mm_entry(
+        paths["meteor"]["kernel_checks"]["costas_mm_scan"], fused_launches,
+        paths["meteor"]["kernel_ms_on_path"].get(
+            "costas_scan_into_mm_scan_kernel")))
     for k in kernels:
         if k["name"] in ("costas_scan", "mm_scan", "viterbi_decode"):
-            k["launches"] = paths["meteor"]["kernel_launches"][k["name"]]
+            # costas_mm_scan counts one of each, but launches neither
+            k["launches"] = meteor_launches[k["name"]] - (
+                fused_launches if k["name"] != "viterbi_decode" else 0)
             k["path_check"] = check = paths["meteor"]["kernel_checks"][
                 k["name"]]
             k["max_abs_err"] = max(k["max_abs_err"], check["max_abs_err"])
@@ -5239,8 +5378,11 @@ def main(argv) -> int:
             k["multichip_path_launches_per_rank"] = {
                 name: plan["chunk_poly_launches_per_rank"]
                 for name, plan in paths["multichip"]["plans"].items()}
-    assert all(k["launches"] for k in kernels), [
-        (k["name"], k["launches"]) for k in kernels]
+    # each kernel launches on its own path, or (costas_scan and mm_scan,
+    # which the meteor path no longer launches) on another path
+    assert all(k["launches"] or any(
+        v for key, v in k.items() if key.endswith("_path_launches"))
+        for k in kernels), [(k["name"], k["launches"]) for k in kernels]
     print(json.dumps({"kernels": kernels}), flush=True)
     for name in ("fft", "pallas", "receiver", "pll", "ctcss", "meteor",
                  "rds", "tf32", "dab", "falcon9", "kg_sstv", "m17", "ryfi",

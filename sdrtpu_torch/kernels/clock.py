@@ -14,6 +14,11 @@ in the same order, so they agree to the last place and make the same
 with zero taps to 8, 16 or 32) and any phase count whose bank fits the
 shared memory one block may take on the card.
 
+`costas_mm_scan` runs a Costas loop and the complex M&M behind it, on its
+output, in one launch (``costas_scan_into_mm_scan``, two warps a row: the
+M&M walk follows the Costas walk a window behind it); `MeteorDemod`
+takes it where no Q delay stands between the loops.
+
 `FeedforwardSymbolSync` is the block-parallel alternative (Oerder & Meyr
 timing per block, then interpolation at that phase): no carry, plain
 torch.
@@ -30,11 +35,18 @@ import torch
 from .. import _build, resolve_device
 from .._precision import fp32_contractions
 from ..graph.block import StreamOp
+from ..graph.cuda_graph import count_launches
+from . import loops
 from . import taps as tapsmod
 from .loops import _f32, _sign
 from .resample import build_polyphase_bank
 
 _MM_TAP_WIDTHS = (8, 16, 32)  # the kernel's padded interpolator lengths
+# M&M's carries as `MuellerMuller`'s state keeps them, after its tail
+_MM_LEAVES = (("offset", torch.int32), ("phase", torch.float32),
+              ("freq", torch.float32), ("last_out", torch.float32),
+              ("p1", torch.complex64), ("p2", torch.complex64),
+              ("c1", torch.complex64), ("c2", torch.complex64))
 
 
 def interp_bank(phase_count: int = 128, tap_count: int = 8) -> np.ndarray:
@@ -187,6 +199,130 @@ def mm_scan(ext, bank, n, n_out, offset0, fstate0, cstate0, fmin, fmax,
 
 mm_scan.launches = 0
 
+# the Costas error modes and the padded tap width `costas_mm_scan` is
+# built for: those of the Meteor demodulator
+_COSTAS_MM_MODES = (loops.COSTAS_ORDER4, loops.COSTAS_BROKEN)
+_COSTAS_MM_TAPS = 8
+
+
+@functools.cache
+def _costas_mm_room(device_index: int) -> int:
+    """The largest bank (bytes) `costas_mm_scan`'s kernel takes on that
+    card; the C side opts its instances in to the shared memory there,
+    so this runs before the first launch on each card."""
+    room = _build.bind("sync_loops", "costas_mm_scan_max_bank_bytes", (),
+                       ctypes.c_longlong)
+    with torch.cuda.device(device_index):
+        return room()
+
+
+def _costas_mm_check(x, tail, phase0, freq0, mode, bank, n_out, carries):
+    """Raise unless the arguments are ones `costas_mm_scan` takes."""
+    if x.dtype != torch.complex64 or x.ndim != 2:
+        raise ValueError(f"costas_mm_scan: want 2-D complex64 x, got "
+                         f"{x.dtype} {tuple(x.shape)}")
+    rows, n = x.shape
+    if bank.ndim != 2 or bank.dtype != torch.float32:
+        raise ValueError(f"costas_mm_scan: want a 2-D float32 bank, got "
+                         f"{bank.dtype} {tuple(bank.shape)}")
+    P, T = bank.shape
+    if mode not in _COSTAS_MM_MODES or not 1 <= T <= _COSTAS_MM_TAPS or P < 1:
+        raise ValueError(f"costas_mm_scan: built for Costas order 4 or the "
+                         f"broken modulation and banks of 1 to "
+                         f"{_COSTAS_MM_TAPS} taps, got mode {mode}, bank "
+                         f"{(P, T)}")
+    if not (1 <= rows < 2 ** 31 and 1 <= n < 2 ** 30 and n_out >= 0):
+        raise ValueError(f"costas_mm_scan: bad shape {(rows, n)}")
+    if tail.dtype != torch.complex64 or tail.shape != (rows, T - 1):
+        raise ValueError(f"costas_mm_scan: want a ({rows}, {T - 1}) "
+                         f"complex64 tail, got {tail.dtype} "
+                         f"{tuple(tail.shape)}")
+    want = [("phase0", phase0, torch.float32), ("freq0", freq0, torch.float32)]
+    if len(carries) != len(_MM_LEAVES):
+        raise ValueError(f"costas_mm_scan: want {len(_MM_LEAVES)} carries")
+    want += [(k, c, dt) for (k, dt), c in zip(_MM_LEAVES, carries)]
+    for name, t, dtype in want:
+        if t.dtype != dtype or t.shape != (rows,):
+            raise ValueError(f"costas_mm_scan: want {name} ({rows},) "
+                             f"{dtype}, got {t.dtype} {tuple(t.shape)}")
+
+
+def costas_mm_scan(x, tail, phase0, freq0, alpha, beta, fmin, fmax, mode,
+                   bank, n_out, carries, mm_fmin, mm_fmax, omega_gain,
+                   mu_gain):
+    """`loops.costas_scan` over ``x``, then `mm_scan` (complex) over its
+    output behind the carried ``tail``.
+
+    ``x`` (rows, n) complex64; ``tail`` (rows, T - 1) complex64; ``phase0``,
+    ``freq0`` (rows,) float32 and the Costas coefficients as
+    `loops.costas_scan` takes them, ``mode`` `COSTAS_ORDER4` or
+    `COSTAS_BROKEN`; ``bank`` (P, T) float32, T <= 8; ``carries``: M&M's
+    carries as `MuellerMuller`'s state keeps them (offset int32, phase,
+    freq, last float32, p1, p2, c1, c2 complex64), each (rows,); the loop
+    bounds and gains as `mm_scan` takes them.  Returns ``(y, phase, freq,
+    syms, valid, tail, carries)``: Costas's output and carries, then
+    `mm_scan`'s symbols and valid mask, the new tail (ext's last T - 1
+    samples, ext = tail ++ y) and the carries, the offset reduced by n.
+
+    CPU tensors: `loops.costas_scan` then `mm_scan`, their plain loops.
+    CUDA tensors: one launch on the current stream, which counts as one
+    of each of the two functions (``costas_scan.launches``,
+    ``mm_scan.launches``) and as ``costas_mm_scan.launches``; no
+    fallback.  Raises on any other mode or bank, or a bank past the
+    card's shared memory."""
+    _costas_mm_check(x, tail, phase0, freq0, mode, bank, n_out, carries)
+    rows, n = x.shape
+    if x.device.type == "cpu":
+        y, phase, freq = loops.costas_scan(x, phase0, freq0, alpha, beta,
+                                           fmin, fmax, mode)
+        ext = torch.cat([tail, y], dim=-1)
+        offset0, ph, fr, last, *c = carries
+        syms, valid, offset, fstate, cstate = mm_scan(
+            ext, bank, n, n_out, offset0, torch.stack([ph, fr, last], 1),
+            torch.stack(c, 1), mm_fmin, mm_fmax, omega_gain, mu_gain)
+        return (y, phase, freq, syms, valid, ext[:, n:],
+                (offset - n, *fstate.unbind(1), *cstate.unbind(1)))
+    if x.device.type != "cuda":
+        raise ValueError(f"costas_mm_scan: unsupported device {x.device}")
+    P, T = bank.shape
+    limit = _costas_mm_room(x.device.index)
+    if P * _COSTAS_MM_TAPS * 4 > limit:
+        raise ValueError(f"costas_mm_scan: a bank of {P} phases x "
+                         f"{_COSTAS_MM_TAPS} taps exceeds the {limit} bytes "
+                         f"of shared memory left to it on this card")
+    if T != _COSTAS_MM_TAPS:
+        bank = torch.nn.functional.pad(bank, (0, _COSTAS_MM_TAPS - T))
+    x, tail, phase0, freq0, bank = (t.contiguous() for t in
+                                    (x, tail, phase0, freq0, bank))
+    carries = [t.contiguous() for t in carries]
+    y = torch.empty_like(x)
+    phase, freq = torch.empty_like(phase0), torch.empty_like(freq0)
+    syms = torch.empty((rows, n_out), dtype=x.dtype, device=x.device)
+    valid = torch.empty((rows, n_out), dtype=torch.bool, device=x.device)
+    new_tail = torch.empty_like(tail)
+    new_carries = [torch.empty_like(t) for t in carries]
+    ptrs = (ctypes.c_void_p * (2 * len(carries)))(
+        *(t.data_ptr() for t in carries + new_carries))
+    entry = _build.bind("sync_loops", "costas_mm_scan_launch",
+                        (ctypes.c_void_p,) * 12 + (ctypes.c_longlong,) * 3
+                        + (ctypes.c_int,) * 3 + (ctypes.c_float,) * 14
+                        + (ctypes.c_void_p,))
+    _build.launch(costas_mm_scan, entry, x.device, x.data_ptr(),
+                  y.data_ptr(), phase0.data_ptr(), freq0.data_ptr(),
+                  phase.data_ptr(), freq.data_ptr(), tail.data_ptr(),
+                  new_tail.data_ptr(), bank.data_ptr(), syms.data_ptr(),
+                  valid.data_ptr(), ptrs, rows, n, n_out, P, T, mode, alpha,
+                  beta, fmin, fmax, *(_f32(b) for b in loops.BROKEN_PHASES),
+                  loops.COSTAS_WRAP_FAST, loops.COSTAS_WRAP_TURN, mm_fmin,
+                  mm_fmax, omega_gain, mu_gain)
+    # one launch computes one of each: their per-launch counts hold
+    count_launches(loops.costas_scan)
+    count_launches(mm_scan)
+    return y, phase, freq, syms, valid, new_tail, tuple(new_carries)
+
+
+costas_mm_scan.launches = 0
+
 
 class MuellerMuller(StreamOp):
     """M&M symbol synchroniser with masked static-shape outputs.
@@ -241,6 +377,20 @@ class MuellerMuller(StreamOp):
             "c2": scalar(0j, torch.complex64),
         }
 
+    def _loop(self):
+        """The loop's frequency bounds and gains, as the scans take them."""
+        return (_f32(self.omega * (1.0 - self.omega_rel_limit)),
+                _f32(self.omega * (1.0 + self.omega_rel_limit)),
+                _f32(self.omega_gain), _f32(self.mu_gain))
+
+    def _new_state(self, tail, leaves, lead):
+        """The state from the new tail and the carries (`_MM_LEAVES`'
+        order, the offset reduced), rows back to ``lead``."""
+        state = {"tail": tail.reshape(lead + (self.T - 1,))}
+        state.update((k, v.reshape(lead))
+                     for (k, _), v in zip(_MM_LEAVES, leaves))
+        return state
+
     def __call__(self, state, x):
         lead = x.shape[:-1]
         n = x.shape[-1]
@@ -258,21 +408,10 @@ class MuellerMuller(StreamOp):
                               for k in ("p1", "p2", "c1", "c2")], dim=1)
         syms, valid, offset, fstate, cstate = mm_scan(
             ext.reshape(rows, -1).contiguous(), self._bank, n,
-            self.max_out(n), flat("offset"), fstate, cstate,
-            _f32(self.omega * (1.0 - self.omega_rel_limit)),
-            _f32(self.omega * (1.0 + self.omega_rel_limit)),
-            _f32(self.omega_gain), _f32(self.mu_gain))
-        new_state = {
-            "tail": ext[..., n:],
-            "offset": (offset - n).reshape(lead),
-            "phase": fstate[:, 0].reshape(lead),
-            "freq": fstate[:, 1].reshape(lead),
-            "last_out": fstate[:, 2].reshape(lead),
-            "p1": cstate[:, 0].reshape(lead),
-            "p2": cstate[:, 1].reshape(lead),
-            "c1": cstate[:, 2].reshape(lead),
-            "c2": cstate[:, 3].reshape(lead),
-        }
+            self.max_out(n), flat("offset"), fstate, cstate, *self._loop())
+        new_state = self._new_state(
+            ext[..., n:], (offset - n, *fstate.unbind(1), *cstate.unbind(1)),
+            lead)
         n_out = syms.shape[-1]
         return new_state, (syms.reshape(lead + (n_out,)),
                            valid.reshape(lead + (n_out,)))

@@ -209,6 +209,10 @@ def _meta_args(name):
                     m(1, 3), m(1, 4, dtype=c64), 3.9, 4.1, 1e-6, 0.01),
         "viterbi_decode": (m(1, 8, 2), np.zeros((4, 2, 2), np.float32),
                            prev, prev >> 1),
+        "costas_mm_scan": (m(1, 8, dtype=c64), m(1, 7, dtype=c64), m(1),
+                           m(1), 0.1, 0.01, -1.0, 1.0, 1, m(128, 8), 6,
+                           [m(1, dtype=torch.int32), m(1), m(1), m(1),
+                            *[m(1, dtype=c64)] * 4], 3.9, 4.1, 1e-6, 0.01),
     }[name]
 
 
@@ -221,6 +225,7 @@ _HAND_WRAPPERS = {
     "costas_scan": "sdrtpu_torch.kernels.loops",
     "mm_scan": "sdrtpu_torch.kernels.clock",
     "viterbi_decode": "sdrtpu_torch.fec.viterbi",
+    "costas_mm_scan": "sdrtpu_torch.kernels.clock",
 }
 
 

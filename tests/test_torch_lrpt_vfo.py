@@ -6,6 +6,13 @@ frame the second time round: the loops lock within it the first time)
 and the deframer's counters add up.  And the deframer counts a codeword
 RS cannot correct.
 
+`costas_mm_scan` (the Costas and M&M scans of `MeteorDemod` in one
+launch on the card) on the CPU: its plain path is `costas_scan_ref` then
+`mm_scan_ref` over the carried tail and the turned samples, equal to the
+bit; it refuses arguments its kernel has no instance for; and
+`MeteorDemod` takes it unless the OQPSK delay stands between the loops,
+its symbols and state equal to the three steps one after another.
+
 The capture is the benchmark's (`sdrbench.captures.lrpt_pass`: random
 CVCDUs through a plain CCSDS encoder, QPSK at 72 ksym/s, white noise and
 impulsive bursts that leave RS bytes to correct) at 300 ksps, the VFO at
@@ -27,6 +34,8 @@ from sdrbench.reference import ccsds as plain  # noqa: E402
 from sdrtpu_torch.apps.receiver import (  # noqa: E402
     IQFrontend, Receiver, VfoConfig)
 from sdrtpu_torch.decoders import ccsds  # noqa: E402
+from sdrtpu_torch.kernels import clock, loops  # noqa: E402
+from sdrtpu_torch.kernels.psk import MeteorDemod  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent.parent
 FS = 300_000.0
@@ -158,3 +167,121 @@ def test_a_negated_stream_cut_at_frame_seams_loses_no_frame(monkeypatch,
         assert all(np.array_equal(g, c) for g, c in zip(got, cv))
     else:
         assert 0 < len(got) < len(cv)
+
+
+def _meteor_like(rng, rows, n):
+    """QPSK held at the Meteor demodulator's 25/12 samples a symbol,
+    0.7 rad and 100 Hz off at 150 ksps, noisy: (rows, n) complex64."""
+    k = np.arange(n)
+    sym = np.exp(1j * (np.pi / 2 * rng.integers(0, 4, (rows, n // 2 + 1))
+                       + np.pi / 4))
+    x = sym[:, k * 12 // 25] * np.exp(1j * (0.7 + 2 * np.pi * 100.0 * k
+                                            / 150_000.0))
+    x = x + 0.05 * (rng.standard_normal((rows, n))
+                    + 1j * rng.standard_normal((rows, n)))
+    return torch.as_tensor(x.astype(np.complex64))
+
+
+def _scan_args(rows, n, mode=loops.COSTAS_ORDER4):
+    """`costas_mm_scan`'s arguments, by name, for the Meteor
+    demodulator's loops over ``rows`` rows of ``n`` samples, from
+    carries a block in."""
+    rng = np.random.default_rng(29)
+    d = MeteorDemod(device="cpu")
+    mm, st = d.recov, d.recov.init_state()
+    tail = 0.5 * _meteor_like(rng, rows, mm.T - 1)
+    carries = [st[k].to(dtype).expand(rows).clone()
+               for k, dtype in clock._MM_LEAVES]
+    carries[0] += 1  # the offset
+    carries[1] += 0.4  # the phase
+    return dict(x=_meteor_like(rng, rows, n), tail=tail,
+                phase0=torch.full((rows,), 0.2), freq0=torch.zeros(rows),
+                alpha=d.costas._coefficients()[0],
+                beta=d.costas._coefficients()[1],
+                fmin=d.costas._coefficients()[2],
+                fmax=d.costas._coefficients()[3], mode=mode,
+                bank=mm._bank, n_out=mm.max_out(n), carries=carries,
+                mm_fmin=mm._loop()[0], mm_fmax=mm._loop()[1],
+                omega_gain=mm._loop()[2], mu_gain=mm._loop()[3])
+
+
+@pytest.mark.parametrize("rows,n,mode", [
+    (1, 300, loops.COSTAS_ORDER4), (2, 300, loops.COSTAS_ORDER4),
+    (1, 5, loops.COSTAS_ORDER4), (1, 300, loops.COSTAS_BROKEN)])
+def test_costas_mm_scan_on_the_cpu_is_the_two_plain_loops(rows, n, mode):
+    a = _scan_args(rows, n, mode)
+    got = clock.costas_mm_scan(**a)
+    y, ph, fr = loops.costas_scan_ref(a["x"], a["phase0"], a["freq0"],
+                                      a["alpha"], a["beta"], a["fmin"],
+                                      a["fmax"], mode)
+    ext = torch.cat([a["tail"], y], dim=-1)
+    off, *f, p1, p2, c1, c2 = a["carries"]
+    syms, valid, offset, fstate, cstate = clock.mm_scan_ref(
+        ext, a["bank"], n, a["n_out"], off, torch.stack(f, 1),
+        torch.stack([p1, p2, c1, c2], 1), a["mm_fmin"], a["mm_fmax"],
+        a["omega_gain"], a["mu_gain"])
+    want = (y, ph, fr, syms, valid, ext[:, n:],
+            (offset - n, *fstate.unbind(1), *cstate.unbind(1)))
+    assert int(valid.sum()) > (0 if n < 10 else 100 * rows)
+    for g, w in zip(got[:-1] + got[-1], want[:-1] + want[-1]):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+def _refused(a, fault):
+    rows = a["x"].shape[0]
+    if fault == "x complex128":
+        a["x"] = a["x"].to(torch.complex128)
+    elif fault == "a carry float64":
+        a["carries"][3] = a["carries"][3].double()
+    elif fault == "tail of another row count":
+        a["tail"] = a["tail"][:rows - 1]
+    elif fault == "phase0 of another row count":
+        a["phase0"] = torch.zeros(rows + 1)
+    elif fault == "a carry of another row count":
+        a["carries"][5] = torch.zeros(rows + 1, dtype=torch.complex64)
+    elif fault == "a 16-tap bank":
+        a["bank"] = torch.zeros((128, 16))
+        a["tail"] = torch.zeros((rows, 15), dtype=torch.complex64)
+    elif fault == "a Costas of order 2":
+        a["mode"] = loops.COSTAS_ORDER2
+    return a
+
+
+@pytest.mark.parametrize("fault", [
+    "x complex128", "a carry float64", "tail of another row count",
+    "phase0 of another row count", "a carry of another row count",
+    "a 16-tap bank", "a Costas of order 2"])
+def test_costas_mm_scan_refuses_what_it_has_no_instance_for(fault):
+    a = _refused(_scan_args(2, 50), fault)
+    with pytest.raises(ValueError):
+        clock.costas_mm_scan(**a)
+
+
+@pytest.mark.parametrize("oqpsk,fused_calls", [(False, 1), (True, 0)])
+def test_meteor_demod_fuses_its_loops_unless_the_q_delay_parts_them(
+        monkeypatch, oqpsk, fused_calls):
+    d = MeteorDemod(oqpsk=oqpsk, device="cpu")
+    calls = []
+    fused = clock.costas_mm_scan
+    monkeypatch.setattr(clock, "costas_mm_scan",
+                        lambda *a: calls.append(a) or fused(*a))
+    x = _meteor_like(np.random.default_rng(31), 1, 400)[0]
+    st = d.init_state()
+    st, _ = d(st, x)  # carries a block in
+    new, (syms, valid) = d(st, x)
+    assert len(calls) == 2 * fused_calls
+    # the three steps one after another
+    _, y = d.rrc(st["rrc"], x)
+    _, y = d.agc(st["agc"], y)
+    costas, y = d.costas(st["costas"], y)
+    if oqpsk:
+        y = torch.complex(y.real, torch.cat([st["last_i"].reshape(1),
+                                             y.imag[:-1]]))
+    mm, (s2, v2) = d.recov(st["mm"], y)
+    assert int(valid.sum()) > 150
+    assert torch.equal(syms, s2) and torch.equal(valid, v2)
+    assert all(torch.equal(a, b) for a, b in zip(new["costas"], costas))
+    assert new["mm"].keys() == mm.keys()
+    for k in mm:
+        assert new["mm"][k].shape == mm[k].shape
+        assert torch.equal(new["mm"][k], mm[k]), k

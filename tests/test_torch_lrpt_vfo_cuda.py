@@ -4,6 +4,12 @@ the VFO at +300 kHz, 1 s blocks): two blocks of the seeded pass
 (`sdrbench.captures.lrpt_pass`) through an `IQFrontend` with the decoder
 VFO and its deframer on each device.
 
+And the decoder VFO's `MeteorDemod`, whose Costas and M&M scans run as
+one `costas_mm_scan` launch, against the same module's stages one after
+another (RRC, FastAGC, `MeteorCostas`, `MuellerMuller`: two launches),
+over three blocks of the pass after the VFO's DDC on the card: symbols,
+valid mask and every state leaf equal to the bit.
+
 Needs an NVIDIA GPU and nvcc; skips without a card.  Imports no JAX, so
 on a machine without it run it as
 
@@ -32,7 +38,7 @@ torch = pytest.importorskip("torch")
 
 from sdrbench.captures import lrpt_pass  # noqa: E402
 from sdrtpu_torch.apps.receiver import (  # noqa: E402
-    IQFrontend, Receiver, VfoConfig)
+    IQFrontend, Receiver, Vfo, VfoConfig)
 
 ROOT = Path(__file__).resolve().parent.parent
 SEED = 2**31 + 1013
@@ -80,3 +86,53 @@ def test_decoder_vfo_on_the_card_matches_the_cpu():
         assert np.array_equal(a, b)
     assert gpu[2]["rs_failures"] == cpu[2]["rs_failures"] == 0
     assert gpu[2]["frames"] == cpu[2]["frames"]
+
+
+def _leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [x for k in tree for x in _leaves(tree[k])]
+    if isinstance(tree, (tuple, list)):
+        return [x for t in tree for x in _leaves(t)]
+    return [tree]
+
+
+def _same_bits(a, b) -> bool:
+    a, b = a.cpu(), b.cpu()
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.is_complex():
+        a, b = torch.view_as_real(a), torch.view_as_real(b)
+    return a.numpy().tobytes() == b.numpy().tobytes()
+
+
+@pytest.mark.cuda
+def test_meteor_demod_with_its_loops_in_one_launch_equals_its_stages():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    cfg = json.loads((ROOT / "sdrbench/configs/meteor_lrpt_2m4.json")
+                     .read_text())
+    v = cfg["vfos"][0]
+    x = lrpt_pass.make(cfg, 4 * cfg["block_len"], SEED,
+                       "cuda").reshape(4, -1)[:3]
+    vfo = Vfo(VfoConfig(v["offset_hz"], v["mode"], v["bandwidth_hz"]),
+              cfg["samplerate"], 48_000.0, device="cuda")
+    d = vfo.radio
+    st = vfo.init_state()
+    xl, ddc, fused, split = st["xl"], st["ddc"], st["radio"], st["radio"]
+    with torch.inference_mode():
+        for block in x:
+            xl, y = vfo.xlator(xl, block)
+            ddc, y = vfo.ddc(ddc, y)
+            fused, (syms, valid) = d(fused, y)
+            s = dict(split)
+            s["rrc"], z = d.rrc(split["rrc"], y)
+            s["agc"], z = d.agc(split["agc"], z)
+            s["costas"], z = d.costas(split["costas"], z)
+            s["mm"], (syms2, valid2) = d.recov(split["mm"], z)
+            split = s
+            assert int(valid.sum()) == int(valid2.sum()) > 70_000
+            assert _same_bits(syms, syms2) and _same_bits(valid, valid2)
+            assert fused.keys() == split.keys()
+            for k in fused:
+                assert all(_same_bits(a, b) for a, b in zip(
+                    _leaves(fused[k]), _leaves(split[k]))), k

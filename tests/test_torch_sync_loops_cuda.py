@@ -18,6 +18,16 @@ the same at the wider banks (16 taps x 256 phases, 8 x 1024, 32 x 1600
 above the default 48 KB of shared memory), with the taps summed as the
 plain version's pairwise tree.
 
+`costas_mm_scan` (both loops in one launch, the M&M walk a window behind
+the Costas walk) against `costas_scan` then `mm_scan` on the card: equal
+to the bit, no tolerance (the same step code on the same values), the
+symbols, valid mask, every carry and the new tail; and 50 launches at the
+Meteor block's shape, each on a row of its own, each equal to the two
+launches.  Before each fused launch of the race check and of one case of
+the match, the allocator's free blocks of the row's size are filled with
+NaN (`_poison`), so a window read before the Costas warp wrote it reads
+NaN or another row's samples, never the right ones.
+
 `costas_identity_check` sweeps every float32 pattern through the forms
 the Costas and PLL kernels put in place of the library's: `sincos_small`
 and sincosf for sinf/cosf, `wrap_pi_fast` and `wrap_pi_turn`
@@ -200,6 +210,153 @@ def test_mm_scan_refuses_a_bank_it_cannot_hold():
                           torch.zeros((1, 3), device="cuda"),
                           torch.zeros((1, 4), dtype=torch.complex64,
                                       device="cuda"), 3.9, 4.1, 1e-6, 0.01)
+
+
+def _meteor_rows(rng, rows, n, case):
+    """(rows, n) complex64 off QPSK held at the Meteor demodulator's 25/12
+    samples a symbol: 100 Hz off at 150 ksps ("psk"), a carrier of 1/50
+    of the rate ("wrap-heavy", "general walk"), the broken transmitter's
+    phases ("broken"), one NaN half way ("nan"); any other case as
+    "psk"."""
+    k = np.arange(n)
+    if case == "broken":
+        ph = np.asarray(loops.BROKEN_PHASES)[rng.integers(0, 4, (rows, n))]
+    else:
+        ph = np.pi / 2 * rng.integers(0, 4, (rows, n)) + np.pi / 4
+    ph = ph[:, k * 12 // 25]
+    turn = (2 * np.pi / 50 if case in ("wrap-heavy", "general walk")
+            else 2 * np.pi * 100.0 / 150_000.0)
+    x = np.exp(1j * (ph + turn * k + 0.7))
+    x = x + 0.05 * (rng.standard_normal((rows, n))
+                    + 1j * rng.standard_normal((rows, n)))
+    if case == "nan":
+        x[:, n // 2] = np.nan
+    return torch.as_tensor(x.astype(np.complex64), device="cuda")
+
+
+def _two_launches(x, tail, phase0, freq0, alpha, beta, fmin, fmax, mode,
+                  bank, n_out, carries, *gains):
+    """`costas_scan` then `mm_scan` on the card, as `costas_mm_scan`
+    returns them."""
+    n = x.shape[1]
+    y, ph, fr = loops.costas_scan(x, phase0, freq0, alpha, beta, fmin, fmax,
+                                  mode)
+    ext = torch.cat([tail, y], dim=-1)
+    off, *f, p1, p2, c1, c2 = carries
+    syms, valid, offset, fstate, cstate = clock.mm_scan(
+        ext, bank, n, n_out, off, torch.stack(f, 1),
+        torch.stack([p1, p2, c1, c2], 1), *gains)
+    return (y, ph, fr, syms, valid, ext[:, n:],
+            (offset - n, *fstate.unbind(1), *cstate.unbind(1)))
+
+
+def _flat(out):
+    return list(out[:-1]) + list(out[-1])
+
+
+def _poison(like, count=4):
+    """Hand ``count`` blocks of ``like``'s size, filled with NaN, back to
+    the caching allocator, so the next tensors of that size start as
+    NaN."""
+    nan = complex(float("nan"), float("nan"))
+    blocks = [torch.full_like(like, nan) for _ in range(count)]
+    torch.cuda.synchronize()
+    del blocks
+
+
+def _meteor_args(rng, rows, n, mode, case):
+    """`costas_mm_scan`'s positional arguments for `MeteorDemod`'s loops
+    over ``rows`` rows of ``n`` samples, from carries a block in, and its
+    `MuellerMuller`."""
+    from sdrtpu_torch.kernels.psk import MeteorDemod
+
+    d = MeteorDemod(device="cuda")
+    mm, st = d.recov, d.recov.init_state()
+    tail = 0.5 * _meteor_rows(rng, rows, mm.T - 1, "psk")
+    carries = [st[k].to(dtype).expand(rows).clone()
+               for k, dtype in clock._MM_LEAVES]
+    carries[0] += 1  # the offset
+    carries[1] += 0.4  # the phase
+    turning = case in ("wrap-heavy", "general walk")
+    phase0 = 100.0 if case == "general walk" else 0.2
+    return (_meteor_rows(rng, rows, n, case), tail,
+            torch.full((rows,), phase0, device="cuda"),
+            torch.full((rows,), 2 * np.pi / 50 if turning else 0.0,
+                       device="cuda"),
+            *d.costas._coefficients(), mode, mm._bank, mm.max_out(n),
+            carries, *mm._loop()), mm
+
+
+# the Meteor block (150 000 samples, one row); n = 5 (below T - 1: the
+# new tail holds old tail samples), 1 023, 1 024, 2 049 (tiles of 1 024,
+# a window of 2 048) and 150 001; two rows; the wrap-heavy row and the
+# general walk from 100 rad; the broken modulation's error; a NaN half
+# way; three blocks, each from the carries the last gave, with and
+# without the allocator's free blocks poisoned before each fused launch
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,n,mode,case,blocks", [
+    (1, 150_000, loops.COSTAS_ORDER4, "psk", 1),
+    (1, 5, loops.COSTAS_ORDER4, "psk", 1),
+    (1, 1023, loops.COSTAS_ORDER4, "psk", 1),
+    (1, 1024, loops.COSTAS_ORDER4, "psk", 1),
+    (1, 2049, loops.COSTAS_ORDER4, "psk", 1),
+    (1, 150_001, loops.COSTAS_ORDER4, "psk", 1),
+    (2, 20_000, loops.COSTAS_ORDER4, "psk", 1),
+    (1, 20_000, loops.COSTAS_ORDER4, "wrap-heavy", 1),
+    (1, 20_000, loops.COSTAS_ORDER4, "general walk", 1),
+    (1, 20_000, loops.COSTAS_BROKEN, "broken", 1),
+    (1, 20_000, loops.COSTAS_ORDER4, "nan", 1),
+    (1, 30_000, loops.COSTAS_ORDER4, "psk", 3),
+    (1, 150_000, loops.COSTAS_ORDER4, "poisoned", 3)])
+def test_costas_mm_scan_matches_two_launches(rows, n, mode, case, blocks):
+    _need_card()
+    rng = np.random.default_rng(13)
+    args, mm = _meteor_args(rng, rows, n, mode, case)
+    x, fused, split = args[0], list(args), list(args)
+    for b in range(blocks):
+        blk = x[:, b * n // blocks:(b + 1) * n // blocks].contiguous()
+        fused[0] = split[0] = blk
+        fused[10] = split[10] = mm.max_out(blk.shape[1])  # n_out
+        before = (loops.costas_scan.launches, clock.mm_scan.launches,
+                  clock.costas_mm_scan.launches)
+        if case == "poisoned":
+            _poison(blk)
+        got = clock.costas_mm_scan(*fused)
+        torch.cuda.synchronize()
+        assert (loops.costas_scan.launches, clock.mm_scan.launches,
+                clock.costas_mm_scan.launches) == tuple(
+                    c + 1 for c in before)
+        want = _two_launches(*split)
+        torch.cuda.synchronize()
+        assert int(got[4].sum()) == int(want[4].sum()) > 0
+        for k, (g, w) in enumerate(zip(_flat(got), _flat(want))):
+            assert _same_bits(g, w), k
+        # the next block from the carries each path gave
+        fused[1:4] = [got[5], got[1], got[2]]
+        fused[11] = list(got[6])
+        split[1:4] = [want[5], want[1], want[2]]
+        split[11] = list(want[6])
+
+
+@pytest.mark.cuda
+def test_costas_mm_scan_races_nowhere_over_50_launches():
+    """The consumer warp reads each window only after the producer has
+    published it: 50 launches at the Meteor block's shape, each on a row
+    of its own and into NaN-filled memory (`_poison`), each equal to the
+    bit to `costas_scan` then `mm_scan` on the same row."""
+    _need_card()
+    rng = np.random.default_rng(3)
+    args, _ = _meteor_args(rng, 1, 150_000, loops.COSTAS_ORDER4, "psk")
+    args = list(args)
+    for _ in range(50):
+        args[0] = _meteor_rows(rng, 1, 150_000, "psk")
+        _poison(args[0])
+        got = _flat(clock.costas_mm_scan(*args))
+        torch.cuda.synchronize()
+        want = _flat(_two_launches(*args))
+        torch.cuda.synchronize()
+        assert all(_same_bits(g, w) for g, w in zip(got, want))
+        del got, want
 
 
 # the counters of `costas_identity_check`, in its order
